@@ -1,0 +1,437 @@
+"""Streaming solver engine, synchronous trigger path (counterpart of
+solve_keyframe_pose_graph_tpu/solver/engine.py).
+
+Per trigger (wakes only when new loop edges arrived and the robot is not
+kidnapped), exactly as the reference engine:
+  0. allocate opt variables for new nodes and switch variables for new edges;
+  1/2. per new loop edge: on the first contact between two worlds, compute
+     wb_T_wa from the VIO estimates and union-merge them in the registry;
+  4. initial guesses for all nodes by the 4-case (in_change_set,
+     before_solvedUntil) table;
+  5. soft anchors on the start node of every world that is its own set root;
+  6. one LM solve (ops/lm.py) on the engine's device, then write-back.
+
+Most of this is host numpy, carried over as it is. The solve runs on
+`device` and the trigger waits for it (collect/drain are no-ops). Left out:
+async dispatch, background and inline fp64 escalation (a distressed solve is
+logged at WARNING and counted in solve_stats), the incremental problem
+builder, the multi-chip mesh, and the reference's XLA compile-stall
+machinery (warmup ladder, bucket cover, sticky tile_k): eager PyTorch has no
+per-shape compile.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from solve_keyframe_pose_graph_tpu.config import Config
+from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
+from solve_keyframe_pose_graph_tpu.utils import nse3
+from solve_keyframe_pose_graph_tpu.utils.timing import PhaseTimer
+from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
+    build_problem_np,
+)
+
+log = logging.getLogger(__name__)
+
+
+def _bucket(n: int, initial: int) -> int:
+    cap = initial
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+class SolverEngine:
+    def __init__(self, store: GraphStore, config: Optional[Config] = None,
+                 device="cpu"):
+        self.store = store
+        self.config = config or Config()
+        self.device = torch.device(device)
+
+        cap = self.config.capacity.initial_nodes
+        self._opt_q = np.zeros((cap, 4)); self._opt_q[:, 3] = 1.0
+        self._opt_t = np.zeros((cap, 3))
+        self._opt_frozen = np.zeros(cap, bool)
+        self._n_opt = 0
+
+        ecap = self.config.capacity.initial_edges
+        self._switch = np.full(ecap, self.config.residual.switch_init)
+        self._n_switch = 0
+
+        self.solved_until = 0
+        self.status = -1
+        self.prev_edge_len = 0
+        self.prev_node_len = 0
+        self.trigger_id = 0
+        self.n_solve_convergences = 0
+        self.last_result: Optional[lm_ops.LMResult] = None
+        self.solve_stats: list = []
+        self.timer = PhaseTimer()
+        # worldID -> (old setID, new setID), valid for one trigger
+        self._changes_to_setid: Dict[int, Tuple[int, int]] = {}
+        # guards the opt variables against concurrent readers (a composer
+        # thread); the solve itself runs on a snapshot outside it
+        self.state_lock = threading.RLock()
+        # sticky structure-aware coarse_group per capacity bucket:
+        # n_cap -> (group, edge_len at decision). See _solve_device.
+        self._coarse_group_by_cap: Dict[int, Tuple[int, int]] = {}
+
+    # ------------------------------------------------------------------
+    # opt-variable access
+    # ------------------------------------------------------------------
+
+    def n_opt_variables(self) -> int:
+        return self._n_opt
+
+    def node_pose_exists(self, i: int) -> bool:
+        return 0 <= i < self._n_opt
+
+    def get_node_pose(self, i: int):
+        if not self.node_pose_exists(i):
+            raise IndexError(f"no optimized pose for node {i}")
+        return self._opt_q[i].copy(), self._opt_t[i].copy()
+
+    def get_switch(self, e: int) -> float:
+        return float(self._switch[e])
+
+    def _grow_nodes(self, n: int):
+        cap = len(self._opt_q)
+        if n <= cap:
+            return
+        new_cap = _bucket(n, cap)
+        q = np.zeros((new_cap, 4)); q[:, 3] = 1.0
+        q[: self._n_opt] = self._opt_q[: self._n_opt]
+        t = np.zeros((new_cap, 3)); t[: self._n_opt] = self._opt_t[: self._n_opt]
+        fr = np.zeros(new_cap, bool)
+        fr[: self._n_opt] = self._opt_frozen[: self._n_opt]
+        self._opt_q, self._opt_t, self._opt_frozen = q, t, fr
+
+    def _grow_switch(self, n: int):
+        cap = len(self._switch)
+        if n <= cap:
+            return
+        new_cap = _bucket(n, cap)
+        s = np.full(new_cap, self.config.residual.switch_init)
+        s[: self._n_switch] = self._switch[: self._n_switch]
+        self._switch = s
+
+    # ------------------------------------------------------------------
+    # trigger
+    # ------------------------------------------------------------------
+
+    def trigger(self) -> bool:
+        """One poll of the solver loop. Returns True if a solve ran."""
+        store = self.store
+        # edges first: nodes are appended before the edges that reference
+        # them, so every edge < edge_len has endpoints < node_len
+        edge_len = store.edge_len
+        node_len = store.node_len
+        if (edge_len == self.prev_edge_len or store.current_kidnap_status
+                or node_len == 0):
+            self.status = 0
+            return False
+
+        self.status = 1
+        self.trigger_id += 1
+        worlds = store.worlds
+        timer = self.timer
+        t0 = time.perf_counter()
+
+        # ---- 0: allocate new opt variables (identity init; the real guess
+        # is set below)
+        self._grow_nodes(node_len)
+        self._grow_switch(edge_len)
+        self._opt_q[self._n_opt:node_len] = [0, 0, 0, 1]
+        self._opt_t[self._n_opt:node_len] = 0
+        self._n_opt = max(self._n_opt, node_len)
+        self._n_switch = max(self._n_switch, edge_len)
+
+        with timer.phase("world_mapping"):
+            node_worlds = store.node_worlds()[:node_len]
+
+        # ---- 1/2: new loop edges; inter-world first contact
+        for e in range(self.prev_edge_len, edge_len):
+            a, b = store.edge_idx_info(e)
+            w_a = int(node_worlds[a])
+            w_b = int(node_worlds[b])
+            if w_a < 0 or w_b < 0 or w_a == w_b or worlds.is_exist(w_b, w_a):
+                continue
+            # first contact: wb_T_wa = wb_T_b * b_T_a_obs * (wa_T_a)^-1
+            qa, ta = store.node_pose(a)
+            qb, tb = store.node_pose(b)
+            qe, te = store.edge_pose(e)
+            q_wb_a, t_wb_a = nse3.pose_mul(qb, tb, qe, te)
+            q_inv, t_inv = nse3.pose_inv(qa, ta)
+            q_rel, t_rel = nse3.pose_mul(q_wb_a, t_wb_a, q_inv, t_inv)
+            before = worlds.get_world_to_setid_map()
+            worlds.set_pose_between_worlds(
+                w_b, w_a, q_rel, t_rel,
+                f"this pose computed from edge {a} <--> {b}")
+            after = worlds.get_world_to_setid_map()
+            self._changes_to_setid.clear()
+            for wid, sid_before in before.items():
+                if after[wid] != sid_before:
+                    self._changes_to_setid[wid] = (sid_before, after[wid])
+
+        # ---- 4: initial guesses, 4-case table
+        with timer.phase("initial_guesses"):
+            self._set_initial_guesses(node_len, node_worlds)
+        # ---- 5: soft anchors on set-root world starts
+        prior_idx, prior_q, prior_t, prior_w = [], [], [], []
+        for ww in range(store.n_worlds()):
+            ww_setid = worlds.find_setID_of_world_i(ww)
+            ww_start = store.nodeidx_of_world_i_started(ww)
+            ww_end = store.nodeidx_of_world_i_ended(ww)
+            if ww_start < 0:
+                continue
+            if ww_setid >= 0 and ww_setid == ww:
+                prior_idx.append(ww_start)
+                prior_q.append(self._opt_q[ww_start].copy())
+                prior_t.append(self._opt_t[ww_start].copy())
+                prior_w.append(max(
+                    1.1, math.log(1 + max(ww_end - ww_start, 0)) / 2.0))
+        self._changes_to_setid.clear()
+
+        # ---- 6: solve on the device
+        self.status = 2
+        with timer.phase("device_solve"):
+            res = self._solve_device(node_len, edge_len, node_worlds,
+                                     prior_idx, prior_q, prior_t, prior_w)
+        self._finish_solve(res, node_len, edge_len, node_worlds,
+                           self.trigger_id, t0)
+        return True
+
+    def collect(self) -> bool:
+        """Solves are synchronous here: nothing is ever in flight."""
+        return False
+
+    def drain(self) -> bool:
+        """Solves are synchronous here: nothing is ever in flight."""
+        return False
+
+    def _finish_solve(self, res: lm_ops.LMResult, node_len, edge_len,
+                      node_worlds, tid, t0) -> None:
+        # one device -> host copy per field
+        q_new = res.q[:node_len].double().cpu().numpy()
+        t_new = res.t[:node_len].double().cpu().numpy()
+        sw_new = res.switch[:edge_len].double().cpu().numpy()
+        stats = {
+            "trigger": tid,
+            "node_len": node_len,
+            "edge_len": edge_len,
+            "initial_cost": float(res.initial_cost),
+            "final_cost": float(res.final_cost),
+            "lm_iterations": int(res.iterations),
+            "successful_steps": int(res.successful_steps),
+            "cg_iterations": int(res.total_cg_iterations),
+            "distress_rejects": int(res.distress_rejects),
+        }
+        solver = self.config.solver
+        if (solver.adaptive_fp64 and solver.dtype != "float64"
+                and lm_ops.needs_escalation(res, solver.escalate_rejects)):
+            # the fp64 escalation rung is not ported: report, never hide
+            log.warning(
+                "trigger %d: distressed %s solve (%d overshoot rejections, "
+                "converged=%s) kept without fp64 escalation",
+                tid, solver.dtype, stats["distress_rejects"],
+                bool(res.converged))
+        self.last_result = res
+        with self.timer.phase("write_back"), self.state_lock:
+            active = (node_worlds >= 0) & ~self._opt_frozen[:node_len]
+            self._opt_q[:node_len][active] = q_new[active]
+            self._opt_t[:node_len][active] = t_new[active]
+            self._switch[:edge_len] = sw_new
+            self.solved_until = node_len - 1
+            stats["trigger_wall_ms"] = 1000.0 * (time.perf_counter() - t0)
+            self.solve_stats.append(stats)
+        if bool(res.converged):
+            self.n_solve_convergences += 1
+        self.prev_edge_len = edge_len
+        self.prev_node_len = node_len
+        self.timer.totals["trigger_total"] += time.perf_counter() - t0
+        self.timer.counts["trigger_total"] += 1
+        self.status = 0
+
+    def _set_initial_guesses(self, node_len: int, node_worlds: np.ndarray
+                             ) -> None:
+        """Step 4 of the trigger: the 4-case initial-guess / re-basing table
+        on (in_change_set, before_solvedUntil), vectorized."""
+        store = self.store
+        worlds = store.worlds
+        su = self.solved_until
+        su_world = int(node_worlds[su]) if node_len else 0
+        if su_world < 0:
+            su_world = -su_world - 1
+
+        n_w = store.n_worlds()
+        set_of = np.array(
+            [worlds.find_setID_of_world_i(ww) for ww in range(n_w)],
+            np.int64)
+        q_sw_all = np.zeros((n_w, 4)); q_sw_all[:, 3] = 1.0
+        t_sw_all = np.zeros((n_w, 3))
+        q_ch_all = np.zeros((n_w, 4)); q_ch_all[:, 3] = 1.0
+        t_ch_all = np.zeros((n_w, 3))
+        changed = np.zeros(n_w, bool)
+        for ww in range(n_w):
+            sw_ = int(set_of[ww])
+            if sw_ >= 0 and sw_ != ww:
+                q_sw_all[ww], t_sw_all[ww] = \
+                    worlds.get_pose_between_worlds(sw_, ww)
+            if ww in self._changes_to_setid:
+                changed[ww] = True
+                old_sid, new_sid = self._changes_to_setid[ww]
+                q_ch_all[ww], t_ch_all[ww] = \
+                    worlds.get_pose_between_worlds(new_sid, old_sid)
+
+        w = node_worlds[:node_len]
+        wc = np.clip(w, 0, n_w - 1)
+        valid = (w >= 0) & (set_of[wc] >= 0)
+        before = np.arange(node_len) <= su
+        in_change = changed[wc] & (w >= 0)
+
+        _, vio_q_all, vio_t_all = store.node_arrays()
+        vio_q_all, vio_t_all = vio_q_all[:node_len], vio_t_all[:node_len]
+        opt_q = self._opt_q[:node_len]
+        opt_t = self._opt_t[:node_len]
+
+        with self.state_lock:
+            # case 1: solved nodes of a world whose setID changed -> re-base
+            c1 = valid & before & in_change
+            if c1.any():
+                qn, tn = nse3.pose_mul(q_ch_all[wc[c1]], t_ch_all[wc[c1]],
+                                       opt_q[c1], opt_t[c1])
+                opt_q[c1] = nse3.quat_normalize(qn)
+                opt_t[c1] = tn
+            # case 2: solved, unchanged -> keep (except su == 0 bootstrap)
+            if su == 0:
+                c2 = valid & before & ~in_change
+                opt_q[c2] = vio_q_all[c2]
+                opt_t[c2] = vio_t_all[c2]
+            # case 3: unsolved, same world as the watermark -> odometry
+            # extrapolation w_T_last * (last_M_u)
+            c3 = valid & ~before & (w == su_world)
+            if c3.any():
+                n3 = int(c3.sum())
+                q_l, t_l = store.node_pose(su)
+                q_li, t_li = nse3.pose_inv(q_l, t_l)
+                q_d, t_d = nse3.pose_mul(
+                    np.broadcast_to(q_li, (n3, 4)),
+                    np.broadcast_to(t_li, (n3, 3)),
+                    vio_q_all[c3], vio_t_all[c3])
+                if self.node_pose_exists(su):
+                    q_s, t_s = self._opt_q[su], self._opt_t[su]
+                else:
+                    q_s, t_s = q_l, t_l
+                qn, tn = nse3.pose_mul(
+                    np.broadcast_to(q_s, q_d.shape),
+                    np.broadcast_to(t_s, t_d.shape), q_d, t_d)
+                opt_q[c3] = nse3.quat_normalize(qn)
+                opt_t[c3] = tn
+            # case 4: unsolved, different world -> map into the set frame
+            c4 = valid & ~before & (w != su_world)
+            if c4.any():
+                qn, tn = nse3.pose_mul(q_sw_all[wc[c4]], t_sw_all[wc[c4]],
+                                       vio_q_all[c4], vio_t_all[c4])
+                opt_q[c4] = nse3.quat_normalize(qn)
+                opt_t[c4] = tn
+
+    def _solve_device(self, node_len, edge_len, node_worlds,
+                      prior_idx, prior_q, prior_t, prior_w
+                      ) -> lm_ops.LMResult:
+        cfg = self.config
+        cap = cfg.capacity
+        ea, eb, eq, et, ew, emask = (a[:edge_len]
+                                     for a in self.store.edge_arrays())
+        _, vio_q, vio_t = self.store.node_arrays()
+
+        # dead-zone masking for edges
+        loop_valid = emask.copy()
+        if edge_len:
+            loop_valid &= (node_worlds[ea] >= 0) & (node_worlds[eb] >= 0)
+
+        if node_len > cap.max_nodes:
+            raise RuntimeError(
+                f"node capacity ceiling exceeded: {node_len} > "
+                f"{cap.max_nodes} (CapacityConfig.max_nodes)")
+        if edge_len > cap.max_edges:
+            raise RuntimeError(
+                f"edge capacity ceiling exceeded: {edge_len} > "
+                f"{cap.max_edges} (CapacityConfig.max_edges)")
+        n_cap = _bucket(node_len, cap.initial_nodes)
+        e_cap = _bucket(max(edge_len, 1), cap.initial_edges)
+        p_cap = _bucket(max(len(prior_idx), 1), 16)
+
+        with self.timer.phase("problem_build"):
+            problem = self._build(
+                node_len, edge_len, node_worlds, prior_idx, prior_q, prior_t,
+                prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew, loop_valid,
+                vio_q[:node_len], vio_t[:node_len])
+
+        kw = lm_ops.cfg_lm_kwargs(
+            cfg.solver, residual_mode=cfg.residual.mode,
+            use_switch=cfg.residual.use_switch_constraints)
+        if kw["coarse_group"] is None:
+            # structure-aware aggregate size from the host edge arrays,
+            # sticky per capacity bucket (it changes results, so the choice
+            # must not flip with every new edge); re-decided once when the
+            # edge sample first becomes meaningful (>= 32 edges)
+            cached = self._coarse_group_by_cap.get(n_cap)
+            if cached is None or cached[1] < 32 <= edge_len:
+                med = (coarse_ops.median_loop_offset(eb, ea, loop_valid)
+                       if edge_len >= 32 else None)
+                self._coarse_group_by_cap[n_cap] = (
+                    coarse_ops.auto_coarse_group(n_cap, med), edge_len)
+            kw["coarse_group"] = self._coarse_group_by_cap[n_cap][0]
+        return lm_ops.lm_solve(problem, **kw)
+
+    def _build(self, node_len, edge_len, node_worlds, prior_idx, prior_q,
+               prior_t, prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew,
+               loop_valid, vio_q, vio_t):
+        """The trigger's Problem, built from scratch on the engine's device
+        (the reference's incremental builder is not ported)."""
+        cfg = self.config
+        return build_problem_np(
+            q=self._opt_q[:node_len], t=self._opt_t[:node_len],
+            vio_q=vio_q, vio_t=vio_t, node_valid=node_worlds >= 0,
+            loop_pairs=(np.stack([ea, eb], -1) if edge_len
+                        else np.zeros((0, 2), np.int64)),
+            loop_q=eq, loop_t=et, loop_w=ew, loop_valid=loop_valid,
+            switch=self._switch[:edge_len],
+            prior_idx=np.asarray(prior_idx, np.int64),
+            prior_q=np.asarray(prior_q).reshape(-1, 4),
+            prior_t=np.asarray(prior_t).reshape(-1, 3),
+            prior_w=np.asarray(prior_w),
+            node_free=~self._opt_frozen[:node_len],
+            n_cap=n_cap, e_cap=e_cap, p_cap=p_cap,
+            fanout=cfg.residual.odometry_fanout,
+            odo_decay=cfg.residual.odometry_decay,
+            odo_yaw_sigma2=cfg.residual.odometry_yaw_sigma2,
+            dtype=np.float64 if cfg.solver.dtype == "float64" else np.float32,
+            device=self.device)
+
+    # ------------------------------------------------------------------
+    # checkpoint-restore support
+    # ------------------------------------------------------------------
+
+    def load_state(self, opt_q: np.ndarray, opt_t: np.ndarray) -> None:
+        """Install restored set-frame poses for the first len(opt_q) nodes
+        and freeze them (the reference marks them constant, so the live
+        session localizes against the frozen map)."""
+        n = len(opt_q)
+        self._grow_nodes(n)
+        self._opt_q[:n] = opt_q
+        self._opt_t[:n] = opt_t
+        self._opt_frozen[:n] = True
+        self._n_opt = max(self._n_opt, n)
+        self.solved_until = n - 1
+        self.prev_node_len = n

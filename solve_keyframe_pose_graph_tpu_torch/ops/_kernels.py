@@ -31,7 +31,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True for a failure of a kernel or of the CUDA device itself, which no
+    caller may log and carry on past."""
+    return isinstance(exc, (KernelError, torch.cuda.OutOfMemoryError,
+                            torch.AcceleratorError))
 
 
 def find_nvcc() -> str:
@@ -43,7 +55,7 @@ def find_nvcc() -> str:
     for c in candidates:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
         "/usr/local/cuda/bin): the port's CUDA kernels are built from "
         f"{CSRC_DIR} at first use and need the CUDA toolkit")
@@ -69,7 +81,7 @@ def build(name: str) -> str:
     cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed ({proc.returncode}) building {name}:\n"
             f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
     os.replace(tmp, out)
@@ -83,7 +95,11 @@ def load(name: str, entries: dict[str, list]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            path = build(name)
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
             for fn, argtypes in entries.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -98,8 +114,15 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
     """Raise if a kernel's C entry returned a CUDA error code."""
     if rc != 0:
         msg = getattr(lib, f"kpg_{name}_error_string")(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
+        raise KernelError(f"CUDA kernel {name} failed to launch: {msg} "
                            f"(cudaError {rc})")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`. The read-modify-write runs under a
+    lock: the trigger, async and escalation threads all launch kernels."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def stream_handle(device: torch.device) -> int:

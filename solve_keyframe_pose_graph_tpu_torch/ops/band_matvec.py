@@ -75,7 +75,7 @@ def band_matvec(D, B, x):
         rc = fn(D.data_ptr(), B.data_ptr(), x.data_ptr(), y.data_ptr(),
                 B.shape[0], x.shape[1], _kernels.stream_handle(x.device))
     _kernels.check(lib, "band_matvec", rc)
-    band_matvec.launches += 1
+    _kernels.count_launch(band_matvec)
     return y
 
 

@@ -61,13 +61,7 @@ def build_coarse_inverse(red: gn_ops.ReducedSystemT, problem: Problem,
     """H_c = P^T H_reduced P over `group`-node aggregates, inverted:
     (6M, 6M). Frozen and padded nodes contribute +I to their segment's
     diagonal block, inert because the prolongation masks them out."""
-    return build_coarse_inverse_arrays(
-        red.Dh, red.Bh, red.Aba_h, problem.loop_b, problem.loop_a,
-        problem.fanout, group)
-
-
-def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a,
-                                fanout: int, group: int) -> torch.Tensor:
+    Dh, Bh = red.Dh, red.Bh
     dt, dev = Dh.dtype, Dh.device
     Nc = Dh.shape[-1]
     c = int(group)
@@ -88,7 +82,7 @@ def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a,
     #   boundary   (u-f-1 in the previous one)  -> (s, s-1) + transpose
     Hdiag = seg_sum(Dh.T)
     Hsub = torch.zeros((M, 36), dtype=dt, device=dev)  # block (s, s-1)
-    for f in range(fanout):
+    for f in range(problem.fanout):
         BT = Bh[f].T                                   # (Nc, 36)
         cross = ((u % c) <= f) & (u >= f + 1)
         BTc = BT * cross[:, None]
@@ -96,20 +90,22 @@ def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a,
         Hdiag = Hdiag + in_sum + in_sum[:, perm]
         Hsub = Hsub + seg_sum(BTc)
 
-    Hc = torch.zeros((M * M, 36), dtype=dt, device=dev)
-    dsl = torch.arange(M, device=dev)
-    prev = torch.clamp(dsl - 1, min=0)
-    Hc.index_add_(0, dsl * M + dsl, Hdiag)
-    Hsub[0] = 0.0                                      # seg 0 has no s-1
-    Hc.index_add_(0, dsl * M + prev, Hsub)
-    Hc.index_add_(0, prev * M + dsl, Hsub[:, perm])
+    Hc = torch.zeros((M, M, 36), dtype=dt, device=dev)
+    s = torch.arange(M, device=dev)
+    Hc[s, s] = Hdiag
+    Hc[s[1:], s[:-1]] = Hsub[1:]                       # seg 0 has no s-1
+    Hc[s[:-1], s[1:]] = Hsub[1:, perm]
+    Hc = Hc.reshape(M * M, 36)
 
-    # loop blocks couple arbitrary segment pairs
-    sb = seg[loop_b]
-    sa = seg[loop_a]
-    AT = Aba_h.T                                       # (Ec, 36)
-    Hc.index_add_(0, sb * M + sa, AT)
-    Hc.index_add_(0, sa * M + sb, AT[:, perm])
+    # loop blocks couple arbitrary segment pairs. Only the live edges' rows
+    # are summed (masked ones are zero and all alias node 0), with a sorted
+    # accumulate: the order is fixed, so the sums repeat run to run
+    order, _ = problem.loop_rows_by_node
+    sb = seg[problem.loop_b]
+    sa = seg[problem.loop_a]
+    AT = red.Aba_h.T                                   # (Ec, 36)
+    Hc.index_put_((torch.cat([sb * M + sa, sa * M + sb])[order],),
+                  torch.cat([AT, AT[:, perm]])[order], accumulate=True)
 
     H = (Hc.reshape(M, M, 6, 6)
            .permute(0, 2, 1, 3)

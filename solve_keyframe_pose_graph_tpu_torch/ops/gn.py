@@ -9,12 +9,16 @@ Entry-major layout throughout, as in the reference's production path:
 blocks (36, N) with row-major 6x6 entries, vectors (6, N), node axis last.
 The odometry band is dense and node-aligned, so its matvec is static shifts
 plus 6x6 multiply-adds (kernel K1 on the card, ops/band_matvec.py). Loop
-edges use gathers and `index_add_`. On CUDA `index_add_` accumulates with
-atomics, so its sums are not bitwise reproducible run to run.
+edges use gathers and a row scatter-add in a fixed order: a segment sum
+over the live edge rows grouped by node (scatter_loop_rows, with the
+grouping built once per Problem), not `index_add_`, whose atomics on CUDA
+make sums differ run to run. So a solve on the card is reproducible, which
+the async-vs-sync replay check relies on. The other scatters here hit
+distinct rows, or add exact zeros, so their sums need no fixed order.
 
 Not ported: the reference's TPU loop-matvec variants (sorted, tiled and
 one-hot forms, gn.py:611-993) exist to feed the TPU's matrix unit and the
-tiled ones drop edges on overflow; the port has the scatter form only.
+tiled ones drop edges on overflow; the port has the segment-sum form only.
 """
 
 from __future__ import annotations
@@ -35,6 +39,16 @@ _JJ = tuple(k % 6 for k in range(36))
 
 def _idx(ix, device) -> torch.Tensor:
     return torch.tensor(ix, dtype=torch.long, device=device)
+
+
+def scatter_loop_rows(problem: Problem, vb, va):
+    """(Nc, C) with row u = the sum of vb[e] over the live loop edges whose
+    b endpoint is u and of va[e] over those whose a endpoint is u; vb, va
+    (Ec, C), zero on masked edges. Each node's rows are summed in edge
+    order (b side first), so the result is the same on every run."""
+    order, counts = problem.loop_rows_by_node
+    return torch.segment_reduce(torch.cat([vb, va])[order], "sum",
+                                lengths=counts, axis=0, unsafe=True)
 
 
 def shift_down(x, f):
@@ -159,14 +173,8 @@ def assemble_t(problem: Problem, q, t, s, use_switch: bool = True
     g_s = g_s * m
     cost = cost + 0.5 * torch.sum(rsq_l)
 
-    Dl = torch.zeros((Nc, 36), dtype=dt, device=dev)
-    Dl.index_add_(0, problem.loop_b, Abb.T)
-    Dl.index_add_(0, problem.loop_a, Aaa.T)
-    gl = torch.zeros((Nc, 6), dtype=dt, device=dev)
-    gl.index_add_(0, problem.loop_b, gb.T)
-    gl.index_add_(0, problem.loop_a, ga.T)
-    D = D + Dl.T
-    g_n = g_n + gl.T
+    D = D + scatter_loop_rows(problem, Abb.T, Aaa.T).T
+    g_n = g_n + scatter_loop_rows(problem, gb.T, ga.T).T
 
     # ---------------- node priors ----------------
     qp, tp = q[problem.prior_idx], t[problem.prior_idx]
@@ -176,6 +184,7 @@ def assemble_t(problem: Problem, q, t, s, use_switch: bool = True
     pm = problem.prior_mask
     cost = cost + 0.5 * torch.sum(rsq_p * pm)
     Dp = torch.zeros((Nc, 36), dtype=dt, device=dev)
+    # live priors sit on distinct nodes and masked ones add exact zeros
     Dp.index_add_(0, problem.prior_idx, (Ap * pm).T)
     gpv = torch.zeros((Nc, 6), dtype=dt, device=dev)
     gpv.index_add_(0, problem.prior_idx, (gp * pm).T)
@@ -211,7 +220,6 @@ def schur_reduce_t(gn: GNBlocksT, problem: Problem, scale_n, scale_s,
     only its own edge's two nodes, so the elimination is exact and O(E)).
     scale_n (6,Nc), scale_s (Ec,), lm_n (6,Nc), lm_s (Ec,)."""
     dt, dev = gn.D.dtype, gn.D.device
-    Nc = gn.D.shape[-1]
     ii, jj = _idx(_II, dev), _idx(_JJ, dev)
     si = scale_n[ii]                   # (36, Nc)
     sj = scale_n[jj]
@@ -232,19 +240,14 @@ def schur_reduce_t(gn: GNBlocksT, problem: Problem, scale_n, scale_s,
     w = ds_inv[None, :]
     corr_b = -(w * chb)[ii] * chb[jj]              # (36, Ec)
     corr_a = -(w * cha)[ii] * cha[jj]
-    Dc = torch.zeros((Nc, 36), dtype=dt, device=dev)
-    Dc.index_add_(0, problem.loop_b, corr_b.T)
-    Dc.index_add_(0, problem.loop_a, corr_a.T)
-    Dh = Dh + Dc.T
+    Dh = Dh + scatter_loop_rows(problem, corr_b.T, corr_a.T).T
     Aba_h = Aba_h - (w * chb)[ii] * cha[jj]
 
     rhs_s = -gn.g_s * scale_s
     rhs_n = -gn.g_n * scale_n
     corr = ds_inv * rhs_s
-    rc = torch.zeros((Nc, 6), dtype=dt, device=dev)
-    rc.index_add_(0, problem.loop_b, (-chb * corr).T)
-    rc.index_add_(0, problem.loop_a, (-cha * corr).T)
-    rhs_n = rhs_n + rc.T
+    rhs_n = rhs_n + scatter_loop_rows(problem, (-chb * corr).T,
+                                      (-cha * corr).T).T
 
     # frozen-node projection: rows/cols -> 0, diag -> I, rhs -> 0
     free = problem.free_mask[None, :]              # (1, Nc)
@@ -289,7 +292,7 @@ def t_blocks_to_aos(Dt):
 
 def loop_matvec_t(red: ReducedSystemT, problem: Problem, p_n, Aba_aos=None):
     """Loop-edge rows of the reduced matvec: row gathers into (Ec,6), one
-    batched product per direction, `index_add_` back. Pass
+    batched product per direction, scatter-added back. Pass
     Aba_aos = t_blocks_to_aos(red.Aba_h) precomputed inside CG."""
     if Aba_aos is None:
         Aba_aos = t_blocks_to_aos(red.Aba_h)       # (Ec,6,6)
@@ -298,10 +301,7 @@ def loop_matvec_t(red: ReducedSystemT, problem: Problem, p_n, Aba_aos=None):
     xa = pT[problem.loop_a]
     vb = torch.einsum("eij,ej->ei", Aba_aos, xa)
     va = torch.einsum("eij,ei->ej", Aba_aos, xb)
-    yl = torch.zeros_like(pT)
-    yl.index_add_(0, problem.loop_b, vb)
-    yl.index_add_(0, problem.loop_a, va)
-    return yl.T
+    return scatter_loop_rows(problem, vb, va).T
 
 
 def reduced_matvec_t(red: ReducedSystemT, problem: Problem, p_n,

@@ -1,6 +1,7 @@
-"""Levenberg-Marquardt trust region, product path (counterpart of
-solve_keyframe_pose_graph_tpu/ops/lm.py:_lm_setup, lm_solve,
-needs_escalation, cfg_lm_kwargs).
+"""Levenberg-Marquardt trust region and the fp64 escalation ladder
+(counterpart of solve_keyframe_pose_graph_tpu/ops/lm.py: _lm_setup,
+lm_solve, lm_solve_adaptive, needs_escalation, escalate_resolve,
+fp64_resolve, solve_problem, solve_problem_adaptive, cfg_lm_kwargs).
 
 Ceres' LevenbergMarquardtStrategy + TrustRegionMinimizer semantics, as in the
 reference: jacobi column scaling, the LM diagonal clamped to [1e-6, 1e32],
@@ -16,17 +17,38 @@ On a CUDA problem every reduced matvec's band part runs kernel K1 and every
 BCR inverse kernel K2: the wrappers dispatch on the tensors' device, which
 replaces the reference's backend switch (lm.py:172-177). The LM loop reads
 its `done` flag on the host once per iteration, so a solve synchronises at
-most max_iterations times; CG never synchronises.
+most max_iterations + 1 times; CG never synchronises.
+
+Escalation ladder. A distressed fp32 solve (needs_escalation) is re-solved
+in fp64 from the same initial guesses on one of two rungs, chosen by
+SolverConfig.fp64_backend as in the reference:
+  * "fp64-cpu", the exact-step host rung (solver/cpu_rung.py): "auto"
+    (the default) and "cpu" take it whenever it is available;
+  * "fp64", the device rung (fp64_resolve): lm_solve in float64 on the
+    problem's own device, repacked to the smallest 1024-multiple capacities
+    covering the live lengths (the reference's repack), with near-exact CG
+    forcing (cg_tolerance <= 1e-5, max_cg_iterations >= 100), padded back
+    to the caller's capacities. On the card it runs K1 and K2 in fp64 (the
+    TPU's Pallas kernels were fp32-only). The config value
+    fp64_backend="tpu" names this device rung in the port; "auto" falls
+    back to it when the host rung is unavailable or fails, and logs the
+    failure at WARNING.
+The device rung takes the caller's dispatch_lock around each LM iteration,
+so a streaming engine's trigger solves wait at most one iteration.
 
 Not ported: the AOT executable cache, outer_unroll, freeze_preconditioner,
-the chunked, mixed-precision and fp64 escalation re-solves, the 4-DOF
-family, the band*coarse two-grid, and the TPU-only loop_impl / band_impl /
-tile_k / matvec_impl variants.
+the mixed-precision rung and lm_solve_chunked (they exist for the TPU's
+emulated fp64 and its ~100 s dispatch limit), the 4-DOF family, the
+band*coarse two-grid, and the TPU-only loop_impl / band_impl / tile_k /
+matvec_impl variants.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import time
 from typing import NamedTuple
 
 import torch
@@ -37,7 +59,9 @@ from solve_keyframe_pose_graph_tpu_torch.ops import gn as gn_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import pcg as pcg_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import se3
 from solve_keyframe_pose_graph_tpu_torch.ops import smallinv
-from solve_keyframe_pose_graph_tpu_torch.solver.problem import Problem
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
+    Problem, live_lengths, problem_astype, repack_problem,
+)
 
 MIN_LM_DIAGONAL = 1e-6
 MAX_LM_DIAGONAL = 1e32
@@ -45,6 +69,9 @@ MIN_RELATIVE_DECREASE = 1e-3
 MAX_RADIUS = 1e16
 MIN_RADIUS = 1e-32
 PRECONDITIONERS = ("band", "band+coarse", "jacobi", "identity")
+FP64_BACKENDS = ("auto", "cpu", "tpu")
+
+log = logging.getLogger(__name__)
 
 
 class LMResult(NamedTuple):
@@ -289,6 +316,8 @@ def lm_solve(
     cg_warm_iters: int = 0,         # first K LM iterations use a
     cg_warm_mult: float = 3.0,      # cg_warm_mult-times looser forcing
     precision: str = "native",      # only the problem's own dtype
+    dispatch_lock=None,             # held around the setup and each LM
+                                    # iteration (to its host sync)
 ) -> LMResult:
     """One full LM solve of `problem` on its own device and dtype."""
     if residual_mode != "6dof":
@@ -298,21 +327,27 @@ def lm_solve(
     # BCR and the coarse solve rely on full-fp32 batched products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state, body = _lm_setup(
-        problem, max_cg_iterations=max_cg_iterations,
-        cg_tolerance=cg_tolerance, cg_q_tolerance=cg_q_tolerance,
-        initial_radius=initial_radius,
-        function_tolerance=function_tolerance,
-        parameter_tolerance=parameter_tolerance,
-        renormalize=renormalize, preconditioner=preconditioner,
-        use_switch=use_switch, bcr_levels=bcr_levels,
-        coarse_group=coarse_group, cg_warm_iters=cg_warm_iters,
-        cg_warm_mult=cg_warm_mult)
+    lock = dispatch_lock if dispatch_lock is not None else \
+        contextlib.nullcontext()
+    with lock:
+        state, body = _lm_setup(
+            problem, max_cg_iterations=max_cg_iterations,
+            cg_tolerance=cg_tolerance, cg_q_tolerance=cg_q_tolerance,
+            initial_radius=initial_radius,
+            function_tolerance=function_tolerance,
+            parameter_tolerance=parameter_tolerance,
+            renormalize=renormalize, preconditioner=preconditioner,
+            use_switch=use_switch, bcr_levels=bcr_levels,
+            coarse_group=coarse_group, cg_warm_iters=cg_warm_iters,
+            cg_warm_mult=cg_warm_mult)
+        done = bool(state.done)
     cost0 = state.cost
     for _ in range(max_iterations):
-        if bool(state.done):              # one host sync per LM iteration
+        if done:
             break
-        state = body(state)
+        with lock:
+            state = body(state)
+            done = bool(state.done)       # one host sync per LM iteration
     return LMResult(
         q=state.q, t=state.t, switch=state.s,
         initial_cost=cost0, final_cost=state.cost,
@@ -326,12 +361,126 @@ def lm_solve(
 def needs_escalation(res: LMResult, escalate_rejects: int) -> bool:
     """The fp32-conditioning distress signature: overshoot rejections on a
     solve that did NOT converge within its budget (healthy solves show 0-2,
-    distressed ones 5-7). escalate_rejects <= 0 always says yes."""
+    distressed ones 4-7 on the card). escalate_rejects <= 0 always says yes."""
     if escalate_rejects <= 0:
         return True
     if bool(res.converged):
         return False
     return int(res.distress_rejects) >= escalate_rejects
+
+
+def lm_solve_adaptive(problem: Problem, *, escalate_rejects: int = 3,
+                      fp64_backend: str = "auto", dispatch_lock=None,
+                      **lm_kw) -> tuple[LMResult, object]:
+    """lm_solve, then the escalation ladder when the solve shows the fp32
+    distress signature (needs_escalation). Returns (result, escalated):
+    False, or the rung that produced the result ("fp64-cpu" or "fp64")."""
+    res = lm_solve(problem, dispatch_lock=dispatch_lock, **lm_kw)
+    if problem.dtype == torch.float64:
+        return res, False
+    if not needs_escalation(res, escalate_rejects):
+        return res, False
+    res, rung, _ = escalate_resolve(problem, lm_kw, escalate_rejects,
+                                    dispatch_lock=dispatch_lock,
+                                    fp64_backend=fp64_backend)
+    return res, rung
+
+
+def escalate_resolve(problem: Problem, lm_kw: dict, escalate_rejects: int,
+                     *, dispatch_lock=None, fp64_backend: str = "auto"
+                     ) -> tuple[LMResult, str, dict]:
+    """Re-solve a distressed problem in fp64 from its initial guesses.
+
+    fp64_backend "auto" and "cpu" take the exact-step host rung when it is
+    available for this residual family ("cpu" raises when it is not, or
+    when it fails); "auto" otherwise, and "tpu" always, take the device
+    rung. Returns (result padded to the caller's capacities, rung, rung
+    statistics): rung "fp64-cpu" or "fp64", statistics a dict with at
+    least `total_s`, the rung's wall time. escalate_rejects is unused by
+    the two-rung ladder (the reference's mixed rung consulted it) and kept
+    for its signature."""
+    del escalate_rejects
+    if fp64_backend not in FP64_BACKENDS:
+        raise ValueError(f"fp64_backend={fp64_backend!r}; use one of "
+                         f"{FP64_BACKENDS}")
+    if fp64_backend != "tpu":
+        from solve_keyframe_pose_graph_tpu_torch.solver import cpu_rung
+        if cpu_rung.available(lm_kw):
+            try:
+                res, stats = cpu_rung.cpu_fp64_resolve(
+                    problem, lm_kw, dispatch_lock=dispatch_lock)
+                return res, "fp64-cpu", stats
+            except Exception:
+                if fp64_backend == "cpu":
+                    raise
+                log.warning("host fp64 rung failed; re-solving on the "
+                            "device rung", exc_info=True)
+        elif fp64_backend == "cpu":
+            raise RuntimeError(
+                "fp64_backend='cpu' requested but the host fp64 rung is "
+                "unavailable (needs libkpg_ldl.so, scipy and the 6dof+switch "
+                "residual family)")
+    t0 = time.perf_counter()
+    res = fp64_resolve(problem, lm_kw, dispatch_lock=dispatch_lock)
+    return res, "fp64", {"total_s": time.perf_counter() - t0}
+
+
+def fp64_resolve(problem: Problem, lm_kw: dict, *,
+                 dispatch_lock=None) -> LMResult:
+    """The device fp64 rung: the whole solve again in float64 on the
+    problem's own device, repacked as the reference repacks it (the
+    smallest 1024-multiple capacities covering the live node and edge
+    lengths), with the near-exact CG forcing of the reference's insurance
+    rung (lm.py:1056-1073) so that its trajectory tracks the exact-step one.
+    The capacity is part of the result: the BCR and coarse partitions
+    follow n_cap, and the inexact-CG trajectory with them. On the 5k/10k
+    bench problem both packages land at chi^2 0.4061 from n_cap 5120 and at
+    71.18 from n_cap 5000 (the exact live length), so the port keeps the
+    reference's granularity. The result is padded back to the caller's
+    capacities; the truncated trailing entries keep their input values."""
+    kw64 = dict(lm_kw)
+    kw64["cg_tolerance"] = min(1e-5, float(lm_kw.get("cg_tolerance", 1e-2)))
+    kw64["max_cg_iterations"] = max(100,
+                                    int(lm_kw.get("max_cg_iterations", 60)))
+    kw64["cg_warm_iters"] = 0
+    kw64["cg_q_tolerance"] = 0.0
+    n_len, e_len = live_lengths(problem)
+    small = repack_problem(problem, n_len, e_len)
+    res = lm_solve(problem_astype(small, torch.float64),
+                   dispatch_lock=dispatch_lock, **kw64)
+    if small.n_cap != problem.n_cap or small.e_cap != problem.e_cap:
+        def pad(full, part):
+            out = full.to(part.dtype).clone()
+            out[: part.shape[0]] = part
+            return out
+        res = res._replace(q=pad(problem.q, res.q), t=pad(problem.t, res.t),
+                           switch=pad(problem.switch, res.switch))
+    return res
+
+
+def solve_problem(problem: Problem, solver_cfg, residual_mode: str = "6dof",
+                  use_switch: bool = True) -> LMResult:
+    """One solve driven by config.SolverConfig, escalation included."""
+    res, _ = solve_problem_adaptive(problem, solver_cfg,
+                                    residual_mode=residual_mode,
+                                    use_switch=use_switch)
+    return res
+
+
+def solve_problem_adaptive(problem: Problem, solver_cfg,
+                           residual_mode: str = "6dof",
+                           use_switch: bool = True
+                           ) -> tuple[LMResult, object]:
+    """solve_problem with the adaptive fp64 escalation gated by
+    solver_cfg.adaptive_fp64. Returns (result, escalated) as
+    lm_solve_adaptive does."""
+    kw = cfg_lm_kwargs(solver_cfg, residual_mode=residual_mode,
+                       use_switch=use_switch)
+    if solver_cfg.adaptive_fp64:
+        return lm_solve_adaptive(
+            problem, escalate_rejects=solver_cfg.escalate_rejects,
+            fp64_backend=solver_cfg.fp64_backend, **kw)
+    return lm_solve(problem, **kw), False
 
 
 def cfg_lm_kwargs(solver_cfg, residual_mode: str = "6dof",

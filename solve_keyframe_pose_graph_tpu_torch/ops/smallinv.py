@@ -89,7 +89,7 @@ def gj_inv(A):
         rc = fn(A.data_ptr(), out.data_ptr(), n, d,
                 _kernels.stream_handle(A.device))
     _kernels.check(lib, "gj_inv", rc)
-    gj_inv.launches += 1
+    _kernels.count_launch(gj_inv)
     return out
 
 

@@ -1,8 +1,9 @@
-"""Streaming solver engine, synchronous trigger path (counterpart of
+"""Streaming solver engine (counterpart of
 solve_keyframe_pose_graph_tpu/solver/engine.py).
 
-Per trigger (wakes only when new loop edges arrived and the robot is not
-kidnapped), exactly as the reference engine:
+Per trigger (wakes only when new loop edges arrived, the robot is not
+kidnapped and no escalated re-solve is in flight), exactly as the reference
+engine:
   0. allocate opt variables for new nodes and switch variables for new edges;
   1/2. per new loop edge: on the first contact between two worlds, compute
      wb_T_wa from the VIO estimates and union-merge them in the registry;
@@ -11,21 +12,36 @@ kidnapped), exactly as the reference engine:
   5. soft anchors on the start node of every world that is its own set root;
   6. one LM solve (ops/lm.py) on the engine's device, then write-back.
 
-Most of this is host numpy, carried over as it is. The solve runs on
-`device` and the trigger waits for it (collect/drain are no-ops). Left out:
-async dispatch, background and inline fp64 escalation (a distressed solve is
-logged at WARNING and counted in solve_stats), the incremental problem
-builder, the multi-chip mesh, and the reference's XLA compile-stall
-machinery (warmup ladder, bucket cover, sticky tile_k): eager PyTorch has no
-per-shape compile.
+Most of this is host numpy, carried over as it is. The solve and its one
+device->host copy run under the engine's device lock. With
+stream.async_dispatch they run on one worker thread and the result is
+collected at the start of the next trigger or by drain(). A solve with the
+fp32 distress signature is re-solved on the fp64 ladder (ops/lm.py
+escalate_resolve): in a background thread (stream.background_escalation,
+the default), whose result is dropped if a world merge landed meanwhile,
+or inline in the trigger. The background rung takes the device lock around
+each of its device steps, so trigger solves wait at most one of them.
+
+Threads and CUDA streams: every worker thread runs its device work on the
+stream that was current on the submitting thread, so a problem built on one
+thread is consumed in order on another; every result crosses to the host by
+a copy that waits for its kernels.
+
+Left out: the incremental problem builder, the multi-chip mesh, and the
+reference's XLA compile-stall machinery (bucket ladder warmup, bucket cover,
+sticky tile_k, CPU-rung warm): eager PyTorch compiles nothing per shape, so
+warmup() builds the two kernels and primes one solve at the first bucket.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
 import math
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,12 +49,14 @@ import torch
 
 from solve_keyframe_pose_graph_tpu.config import Config
 from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
+from solve_keyframe_pose_graph_tpu.graph import synthetic
 from solve_keyframe_pose_graph_tpu.utils import nse3
 from solve_keyframe_pose_graph_tpu.utils.timing import PhaseTimer
+from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
-    build_problem_np,
+    Problem, build_problem_np,
 )
 
 log = logging.getLogger(__name__)
@@ -49,6 +67,38 @@ def _bucket(n: int, initial: int) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+def _to_host(res: lm_ops.LMResult, node_len: int, edge_len: int
+             ) -> lm_ops.LMResult:
+    """The write-back part of a result as CPU fp64 tensors, fetched from the
+    device in one copy (which waits for the solve's kernels)."""
+    scalars = (res.initial_cost, res.final_cost, res.iterations,
+               res.successful_steps, res.distress_rejects,
+               res.total_cg_iterations, res.converged, res.cg_truncation)
+    flat = torch.cat([res.q[:node_len].reshape(-1).double(),
+                      res.t[:node_len].reshape(-1).double(),
+                      res.switch[:edge_len].double(),
+                      torch.stack([v.double() for v in scalars])]).cpu()
+    q, t, sw, sc = torch.split(flat, [4 * node_len, 3 * node_len, edge_len,
+                                      len(scalars)])
+    return lm_ops.LMResult(
+        q=q.reshape(node_len, 4), t=t.reshape(node_len, 3), switch=sw,
+        initial_cost=sc[0], final_cost=sc[1],
+        iterations=sc[2].to(torch.int32),
+        successful_steps=sc[3].to(torch.int32),
+        distress_rejects=sc[4].to(torch.int32),
+        total_cg_iterations=sc[5].to(torch.int32),
+        converged=sc[6] > 0.5, cg_truncation=sc[7])
+
+
+def _on_stream(device: torch.device):
+    """A context that runs a worker thread's device work on the stream
+    that is current on the calling thread (see the module note)."""
+    if device.type != "cuda":
+        return lambda: contextlib.nullcontext()
+    stream = torch.cuda.current_stream(device)
+    return lambda: torch.cuda.stream(stream)
 
 
 class SolverEngine:
@@ -83,8 +133,22 @@ class SolverEngine:
         # thread); the solve itself runs on a snapshot outside it
         self.state_lock = threading.RLock()
         # sticky structure-aware coarse_group per capacity bucket:
-        # n_cap -> (group, edge_len at decision). See _solve_device.
+        # n_cap -> (group, edge_len at decision). See _prepare_solve.
         self._coarse_group_by_cap: Dict[int, Tuple[int, int]] = {}
+        # serializes device work between trigger solves, the async worker
+        # and a background escalation's device steps
+        self._device_lock = threading.Lock()
+        # in-flight async solve (stream.async_dispatch): (future, problem,
+        # kw, node_len, edge_len, node_worlds, trigger id, t0); popped under
+        # state_lock by collect()
+        self._pending = None
+        self._executor: Optional[ThreadPoolExecutor] = None
+        # in-flight background escalated re-solve; joined by drain()
+        self._bg_thread: Optional[threading.Thread] = None
+        self._warmup_thread: Optional[threading.Thread] = None
+        # a kernel or device failure on a background thread, raised on the
+        # next collect / drain / warmup_join
+        self._bg_error: Optional[BaseException] = None
 
     # ------------------------------------------------------------------
     # opt-variable access
@@ -130,14 +194,24 @@ class SolverEngine:
     # ------------------------------------------------------------------
 
     def trigger(self) -> bool:
-        """One poll of the solver loop. Returns True if a solve ran."""
+        """One poll of the solver loop. Returns True if a solve ran (or,
+        with async dispatch, was dispatched)."""
         store = self.store
+        # a previous async solve's write-back must land before this
+        # trigger's initial guesses read the opt state
+        self.collect()
         # edges first: nodes are appended before the edges that reference
         # them, so every edge < edge_len has endpoints < node_len
         edge_len = store.edge_len
         node_len = store.node_len
         if (edge_len == self.prev_edge_len or store.current_kidnap_status
                 or node_len == 0):
+            self.status = 0
+            return False
+        if self._bg_thread is not None and self._bg_thread.is_alive():
+            # an escalated re-solve of this graph is in flight: new edges
+            # accumulate until it lands, as in the reference engine (kept
+            # for parity; a behaviour change needs its own A/B)
             self.status = 0
             return False
 
@@ -204,56 +278,115 @@ class SolverEngine:
 
         # ---- 6: solve on the device
         self.status = 2
+        tid = self.trigger_id
         with timer.phase("device_solve"):
-            res = self._solve_device(node_len, edge_len, node_worlds,
-                                     prior_idx, prior_q, prior_t, prior_w)
-        self._finish_solve(res, node_len, edge_len, node_worlds,
-                           self.trigger_id, t0)
+            with self._device_lock:
+                problem, kw = self._prepare_solve(
+                    node_len, edge_len, node_worlds, prior_idx, prior_q,
+                    prior_t, prior_w)
+            if self.config.stream.async_dispatch:
+                # the solve and its copy to the host run on the worker; the
+                # host goes back to ingest and compose until the next
+                # trigger (or drain) collects it
+                if self._executor is None:
+                    self._executor = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="kpg-async")
+                fut = self._executor.submit(
+                    self._solve_to_host, problem, kw, node_len, edge_len,
+                    _on_stream(self.device))
+                with self.state_lock:
+                    self._pending = (fut, problem, kw, node_len, edge_len,
+                                     node_worlds, tid, t0)
+                self.status = 3
+                return True
+            res = self._solve_to_host(problem, kw, node_len, edge_len)
+        self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
+                           tid, t0)
         return True
 
+    def _solve_to_host(self, problem: Problem, kw: dict, node_len: int,
+                       edge_len: int, stream_ctx=contextlib.nullcontext
+                       ) -> lm_ops.LMResult:
+        with stream_ctx(), self._device_lock:
+            return _to_host(lm_ops.lm_solve(problem, **kw), node_len,
+                            edge_len)
+
     def collect(self) -> bool:
-        """Solves are synchronous here: nothing is ever in flight."""
-        return False
+        """Collect an in-flight async solve (waits for it) and write it
+        back. Returns True if one was pending. The pending entry is popped
+        under state_lock: the solver thread's trigger and a server thread's
+        drain may race here, and only one of them may finish it."""
+        self._raise_bg_error()
+        with self.state_lock:
+            pending, self._pending = self._pending, None
+        if pending is None:
+            return False
+        fut, problem, kw, node_len, edge_len, node_worlds, tid, t0 = pending
+        res = fut.result()
+        self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
+                           tid, t0)
+        return True
 
     def drain(self) -> bool:
-        """Solves are synchronous here: nothing is ever in flight."""
-        return False
+        """Checkpoint / shutdown / batch barrier: collect an in-flight async
+        solve and join a background escalation, so its write-back has
+        landed when this returns. Returns True if an async solve was
+        pending."""
+        got = self.collect()
+        t = self._bg_thread
+        if t is not None:
+            t.join()
+            self._bg_thread = None
+        self._raise_bg_error()
+        return got
 
-    def _finish_solve(self, res: lm_ops.LMResult, node_len, edge_len,
-                      node_worlds, tid, t0) -> None:
-        # one device -> host copy per field
-        q_new = res.q[:node_len].double().cpu().numpy()
-        t_new = res.t[:node_len].double().cpu().numpy()
-        sw_new = res.switch[:edge_len].double().cpu().numpy()
-        stats = {
-            "trigger": tid,
-            "node_len": node_len,
-            "edge_len": edge_len,
-            "initial_cost": float(res.initial_cost),
-            "final_cost": float(res.final_cost),
-            "lm_iterations": int(res.iterations),
-            "successful_steps": int(res.successful_steps),
-            "cg_iterations": int(res.total_cg_iterations),
-            "distress_rejects": int(res.distress_rejects),
-        }
+    def _raise_bg_error(self) -> None:
+        """Raise, once, a kernel or device failure that a background thread
+        (escalation, warmup) stored."""
+        with self.state_lock:
+            err, self._bg_error = self._bg_error, None
+        if err is not None:
+            raise err
+
+    def _finish_solve(self, res: lm_ops.LMResult, problem: Problem, kw: dict,
+                      node_len, edge_len, node_worlds, tid, t0) -> None:
+        """Escalate a distressed result if the config says so, then write
+        back. `res` is a host result (_to_host)."""
+        escalated = False
         solver = self.config.solver
         if (solver.adaptive_fp64 and solver.dtype != "float64"
                 and lm_ops.needs_escalation(res, solver.escalate_rejects)):
-            # the fp64 escalation rung is not ported: report, never hide
-            log.warning(
-                "trigger %d: distressed %s solve (%d overshoot rejections, "
-                "converged=%s) kept without fp64 escalation",
-                tid, solver.dtype, stats["distress_rejects"],
-                bool(res.converged))
+            k = solver.escalate_rejects
+            if self.config.stream.background_escalation:
+                # serve the fp32 result now, re-solve in the background
+                if self._start_escalation(problem, kw, k, node_len, edge_len,
+                                          node_worlds, tid):
+                    escalated = "pending"
+            else:
+                with self.timer.phase("fp64_escalation"):
+                    res, escalated, _ = lm_ops.escalate_resolve(
+                        problem, kw, k, dispatch_lock=self._device_lock,
+                        fp64_backend=solver.fp64_backend)
+                    res = _to_host(res, node_len, edge_len)
+        # the stats append and the poses change together under state_lock:
+        # the stats length is part of the Composer's version stamp
         self.last_result = res
         with self.timer.phase("write_back"), self.state_lock:
-            active = (node_worlds >= 0) & ~self._opt_frozen[:node_len]
-            self._opt_q[:node_len][active] = q_new[active]
-            self._opt_t[:node_len][active] = t_new[active]
-            self._switch[:edge_len] = sw_new
+            self._write_back(res, node_len, edge_len, node_worlds)
             self.solved_until = node_len - 1
-            stats["trigger_wall_ms"] = 1000.0 * (time.perf_counter() - t0)
-            self.solve_stats.append(stats)
+            self.solve_stats.append({
+                "trigger": tid,
+                "node_len": node_len,
+                "edge_len": edge_len,
+                "initial_cost": float(res.initial_cost),
+                "final_cost": float(res.final_cost),
+                "lm_iterations": int(res.iterations),
+                "successful_steps": int(res.successful_steps),
+                "cg_iterations": int(res.total_cg_iterations),
+                "distress_rejects": int(res.distress_rejects),
+                "fp64_escalated": escalated,
+                "trigger_wall_ms": 1000.0 * (time.perf_counter() - t0),
+            })
         if bool(res.converged):
             self.n_solve_convergences += 1
         self.prev_edge_len = edge_len
@@ -261,6 +394,83 @@ class SolverEngine:
         self.timer.totals["trigger_total"] += time.perf_counter() - t0
         self.timer.counts["trigger_total"] += 1
         self.status = 0
+
+    def _write_back(self, res: lm_ops.LMResult, node_len, edge_len,
+                    node_worlds) -> None:
+        """Install solved poses and switches (caller holds state_lock);
+        frozen and dead-zone nodes keep theirs."""
+        q_new = res.q[:node_len].numpy()
+        t_new = res.t[:node_len].numpy()
+        active = (node_worlds[:node_len] >= 0) & ~self._opt_frozen[:node_len]
+        self._opt_q[:node_len][active] = q_new[active]
+        self._opt_t[:node_len][active] = t_new[active]
+        self._switch[:edge_len] = res.switch[:edge_len].numpy()
+
+    # ------------------------------------------------------------------
+    # background escalated re-solve (stream.background_escalation)
+    # ------------------------------------------------------------------
+
+    def _start_escalation(self, problem, kw, k, node_len, edge_len,
+                          node_worlds, tid) -> bool:
+        """Start the escalated re-solve on a daemon thread, one at a time:
+        while one is in flight, further distressed results are kept."""
+        t = self._bg_thread
+        if t is not None and t.is_alive():
+            return False
+        # if a set union lands while the re-solve runs, its poses are in a
+        # pre-merge frame and writing them back would undo the re-basing
+        setid_snapshot = dict(self.store.worlds.get_world_to_setid_map())
+        t = threading.Thread(
+            target=self._run_escalation,
+            args=(problem, kw, k, node_len, edge_len, node_worlds, tid,
+                  setid_snapshot, _on_stream(self.device)),
+            name=f"kpg-escalate-{tid}", daemon=True)
+        self._bg_thread = t
+        t.start()
+        return True
+
+    def _run_escalation(self, problem, kw, k, node_len, edge_len,
+                        node_worlds, tid, setid_snapshot, stream_ctx) -> None:
+        t0 = time.perf_counter()
+        try:
+            with stream_ctx():
+                res, rung, rung_stats = lm_ops.escalate_resolve(
+                    problem, kw, k, dispatch_lock=self._device_lock,
+                    fp64_backend=self.config.solver.fp64_backend)
+                res = _to_host(res, node_len, edge_len)
+        except Exception as e:
+            # a failed kernel or device is raised on the solver loop; a
+            # host rung's failure is logged and the fp32 result kept, as in
+            # the reference engine
+            log.exception("trigger %d: background escalation failed", tid)
+            with self.state_lock:
+                self.solve_stats.append({
+                    "trigger": tid, "background_escalation": True,
+                    "escalation_error": repr(e)})
+                if _kernels.is_device_error(e):
+                    self._bg_error = e
+            return
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+        with self.state_lock:
+            stale = (dict(self.store.worlds.get_world_to_setid_map())
+                     != setid_snapshot)
+            if not stale:
+                self._write_back(res, node_len, edge_len, node_worlds)
+                self.last_result = res
+            self.solve_stats.append({
+                "trigger": tid, "node_len": node_len, "edge_len": edge_len,
+                "background_escalation": True, "escalated_rung": rung,
+                "applied": not stale,
+                "initial_cost": float(res.initial_cost),
+                "final_cost": float(res.final_cost),
+                "lm_iterations": int(res.iterations),
+                "successful_steps": int(res.successful_steps),
+                "cg_iterations": int(res.total_cg_iterations),
+                "escalation_wall_ms": wall_ms,
+                "rung_stats": rung_stats,
+            })
+        self.timer.totals["fp64_escalation"] += wall_ms / 1000.0
+        self.timer.counts["fp64_escalation"] += 1
 
     def _set_initial_guesses(self, node_len: int, node_worlds: np.ndarray
                              ) -> None:
@@ -345,9 +555,10 @@ class SolverEngine:
                 opt_q[c4] = nse3.quat_normalize(qn)
                 opt_t[c4] = tn
 
-    def _solve_device(self, node_len, edge_len, node_worlds,
-                      prior_idx, prior_q, prior_t, prior_w
-                      ) -> lm_ops.LMResult:
+    def _prepare_solve(self, node_len, edge_len, node_worlds,
+                       prior_idx, prior_q, prior_t, prior_w
+                       ) -> Tuple[Problem, dict]:
+        """The trigger's Problem on the device and its lm_solve kwargs."""
         cfg = self.config
         cap = cfg.capacity
         ea, eb, eq, et, ew, emask = (a[:edge_len]
@@ -392,7 +603,7 @@ class SolverEngine:
                 self._coarse_group_by_cap[n_cap] = (
                     coarse_ops.auto_coarse_group(n_cap, med), edge_len)
             kw["coarse_group"] = self._coarse_group_by_cap[n_cap][0]
-        return lm_ops.lm_solve(problem, **kw)
+        return problem, kw
 
     def _build(self, node_len, edge_len, node_worlds, prior_idx, prior_q,
                prior_t, prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew,
@@ -435,3 +646,95 @@ class SolverEngine:
         self._n_opt = max(self._n_opt, n)
         self.solved_until = n - 1
         self.prev_node_len = n
+
+    # ------------------------------------------------------------------
+    # start-up and the blocking loop
+    # ------------------------------------------------------------------
+
+    def warmup(self, max_nodes: int, max_edges: int,
+               background: bool = False) -> int:
+        """Make the first live trigger pay no kernel build: build both
+        kernels (on a CUDA device) and run one solve of a dummy graph at the
+        first capacity bucket, the one a fresh stream solves in. Eager
+        PyTorch compiles nothing per shape, so there is no bucket ladder;
+        max_nodes and max_edges are checked against the capacity ceilings.
+        background=True runs it on a daemon thread (warmup_join waits).
+        Returns the number of buckets primed (1)."""
+        cap = self.config.capacity
+        if max_nodes > cap.max_nodes or max_edges > cap.max_edges:
+            raise ValueError(
+                f"warmup({max_nodes}, {max_edges}) exceeds the capacity "
+                f"ceilings ({cap.max_nodes}, {cap.max_edges})")
+        if not background:
+            self._warm_first_bucket()
+            return 1
+        t = threading.Thread(target=self._warm_in_background,
+                             args=(_on_stream(self.device),),
+                             name="kpg-warmup", daemon=True)
+        self._warmup_thread = t
+        t.start()
+        return 1
+
+    def warmup_join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for a background warmup; True once it has finished. Raises
+        what the warmup raised."""
+        t = self._warmup_thread
+        if t is None:
+            return True
+        t.join(timeout)
+        if not t.is_alive():
+            self._raise_bg_error()
+        return not t.is_alive()
+
+    def _warm_in_background(self, stream_ctx) -> None:
+        try:
+            self._warm_first_bucket(stream_ctx)
+        except BaseException as e:
+            log.exception("background warmup failed")
+            with self.state_lock:
+                self._bg_error = e
+
+    def _warm_first_bucket(self, stream_ctx=contextlib.nullcontext) -> None:
+        from solve_keyframe_pose_graph_tpu_torch.ops import (
+            band_matvec, smallinv,
+        )
+
+        cfg = self.config
+        if self.device.type == "cuda":
+            for name, entries in (("band_matvec", band_matvec._ENTRIES),
+                                  ("gj_inv", smallinv._ENTRIES)):
+                _kernels.load(name, entries)
+        n_cap, e_cap = cfg.capacity.initial_nodes, cfg.capacity.initial_edges
+        g = synthetic.circle_graph(n_nodes=min(64, n_cap),
+                                   n_loops=min(8, e_cap), seed=0)
+        # priming only: the outcome is irrelevant and must not escalate
+        warm_solver = dataclasses.replace(cfg.solver, adaptive_fp64=False)
+        kw = lm_ops.cfg_lm_kwargs(
+            warm_solver, residual_mode=cfg.residual.mode,
+            use_switch=cfg.residual.use_switch_constraints)
+        if kw["coarse_group"] is None:
+            kw["coarse_group"] = coarse_ops.auto_coarse_group(n_cap)
+        with stream_ctx(), self._device_lock:
+            problem = build_problem_np(
+                q=g.vio_q, t=g.vio_t, vio_q=g.vio_q, vio_t=g.vio_t,
+                node_valid=np.ones(g.n_nodes, bool),
+                loop_pairs=g.loop_pairs, loop_q=g.loop_q, loop_t=g.loop_t,
+                loop_w=g.loop_w, loop_valid=np.ones(g.n_loops, bool),
+                switch=np.full(g.n_loops, cfg.residual.switch_init),
+                prior_idx=np.array([0]), prior_q=g.vio_q[:1],
+                prior_t=g.vio_t[:1], prior_w=np.array([1.1]),
+                n_cap=n_cap, e_cap=e_cap, p_cap=16,
+                fanout=cfg.residual.odometry_fanout,
+                dtype=(np.float64 if cfg.solver.dtype == "float64"
+                       else np.float32),
+                device=self.device)
+            float(lm_ops.lm_solve(problem, **kw).final_cost)
+
+    def run(self, poll_hz: Optional[float] = None, stop_when=None) -> None:
+        """Blocking trigger loop (the reference thread's ros::Rate loop)."""
+        period = 1.0 / (poll_hz or self.config.stream.trigger_poll_hz)
+        while True:
+            if stop_when is not None and stop_when():
+                return
+            if not self.trigger():
+                time.sleep(period)

@@ -21,6 +21,7 @@ each field is copied to the device once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -86,6 +87,20 @@ class Problem:
     @property
     def device(self) -> torch.device:
         return self.q.device
+
+    @functools.cached_property
+    def loop_rows_by_node(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(order, counts) for the loop-edge row scatter of ops/gn.py
+        (scatter_loop_rows): `order` lists the rows of cat(b side, a side)
+        of the live loop edges grouped by node, in edge order within a
+        node; `counts` (Nc,) is the number of rows per node. Masked edges
+        carry zero rows and are left out. Built once per Problem on its
+        device (one host sync)."""
+        node = torch.cat([self.loop_b, self.loop_a]).long()
+        rows = torch.nonzero((self.loop_mask > 0.5).repeat(2)).squeeze(1)
+        node = node[rows]
+        order = torch.argsort(node, stable=True)
+        return rows[order], torch.bincount(node, minlength=self.n_cap)
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Problem))
@@ -242,6 +257,33 @@ def live_lengths(p: Problem) -> tuple[int, int]:
     n_len = int(nz[-1]) + 1 if nz.numel() else 1
     e_len = int(ez[-1]) + 1 if ez.numel() else 1
     return n_len, e_len
+
+
+def repack_problem(p: Problem, n_len: int, e_len: int,
+                   granularity: int = 1024) -> Problem:
+    """Slice a Problem down to the smallest granularity-multiple capacities
+    covering (n_len, e_len); a no-op when the capacities already fit. The
+    slices are views on the same device. Safe because every cross-reference
+    stays in range: valid loop and prior indices point at live nodes, and
+    masked padding edges alias node 0 (build_problem_np zeros them). The
+    escalation rungs call it with granularity 1, i.e. the live lengths."""
+    g = int(granularity)
+    n_cap = min(p.n_cap, max(g, -(-int(n_len) // g) * g))
+    e_cap = min(p.e_cap, max(g, -(-int(e_len) // g) * g))
+    if n_cap == p.n_cap and e_cap == p.e_cap:
+        return p
+    return Problem(
+        q=p.q[:n_cap], t=p.t[:n_cap],
+        node_mask=p.node_mask[:n_cap], free_mask=p.free_mask[:n_cap],
+        odo_q=p.odo_q[:, :n_cap], odo_t=p.odo_t[:, :n_cap],
+        odo_w=p.odo_w[:, :n_cap], odo_mask=p.odo_mask[:, :n_cap],
+        loop_a=p.loop_a[:e_cap], loop_b=p.loop_b[:e_cap],
+        loop_q=p.loop_q[:e_cap], loop_t=p.loop_t[:e_cap],
+        loop_w=p.loop_w[:e_cap], loop_mask=p.loop_mask[:e_cap],
+        switch=p.switch[:e_cap],
+        prior_idx=p.prior_idx, prior_q=p.prior_q, prior_t=p.prior_t,
+        prior_w=p.prior_w, prior_mask=p.prior_mask,
+    )
 
 
 def problem_astype(p: Problem, dtype: torch.dtype) -> Problem:

@@ -121,6 +121,11 @@ def test_reduced_matvec_band_part_is_the_wrapper(rng, monkeypatch):
     class _P:
         loop_a = torch.zeros(e, dtype=torch.int32)
         loop_b = torch.ones(e, dtype=torch.int32)
+        # Problem.loop_rows_by_node: the a-side rows land on node 0, the
+        # b-side rows on node 1
+        loop_rows_by_node = (torch.cat([torch.arange(e, 2 * e),
+                                        torch.arange(e)]),
+                             torch.tensor([e, e] + [0] * (n - 2)))
 
     y = gn.reduced_matvec_t(red, _P, x)
     assert seen == [(6, n)]

@@ -1,19 +1,22 @@
 """PyTorch port: the streaming engine's synchronous trigger path, replaying
-the trigger-gating, streaming-growth and multi-world-kidnap scenarios of
-tests/test_engine.py through both engines.
+the trigger-gating, streaming-growth, multi-world-kidnap, fp64-escalation
+and async-dispatch scenarios of tests/test_engine.py through both engines.
 
-Both run fp64 on the CPU with the same solver settings; the JAX engine is
-set to the port's formulation (scatter loop matvec, AoS band build, the full
-problem build) and to no fp64 escalation. Every optimized pose must agree
-to 1e-8 of its scale, and every trigger must fire in both."""
+Both run on the CPU with the same solver settings; the JAX engine is set to
+the port's formulation (scatter loop matvec, AoS band build, the full
+problem build). Plain scenarios run fp64 without escalation; the escalation
+scenarios run fp32 with the ladder forced, and the exact-step fp64 rung's
+poses must agree as closely. Every optimized pose must agree to 1e-8 of its
+scale, and every trigger must fire in both."""
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from solve_keyframe_pose_graph_tpu.config import (
-    Config, IOConfig, SolverConfig, StreamConfig,
+    CapacityConfig, Config, IOConfig, SolverConfig, StreamConfig,
 )
 from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
 from solve_keyframe_pose_graph_tpu.solver.engine import (
@@ -31,6 +34,8 @@ def _config():
         solver=SolverConfig(dtype="float64", adaptive_fp64=False,
                             loop_impl="scatter", band_impl="aos"),
         stream=StreamConfig(async_dispatch=False, incremental_build=False),
+        # small first buckets keep both packages' CPU solves short
+        capacity=CapacityConfig(initial_nodes=128, initial_edges=32),
         io=IOConfig(compile_cache_dir=""))
 
 
@@ -171,21 +176,190 @@ def test_load_state_freezes_restored_nodes_as_reference():
         np.testing.assert_array_equal(b.port.get_node_pose(i)[1], t_old[i])
 
 
-def test_distressed_solve_is_logged_not_escalated(caplog):
-    """The fp64 rung is not ported: a solve that needs escalation keeps its
-    result, records its distress count and says so at WARNING."""
-    store = GraphStore()
-    cfg = dataclasses.replace(
-        _config(), solver=SolverConfig(dtype="float32", escalate_rejects=0))
-    eng = SolverEngine(store, cfg)
-    for i in range(40):
-        store.add_node(T0 + i * S, nse3.quat_identity(), [float(i), 0, 0])
-    store.add_loop_edge(T0 + 30 * S, T0 + 5 * S, nse3.quat_identity(),
-                        [-25.05, 0, 0], 1.0)
-    with caplog.at_level("WARNING"):
-        assert eng.trigger()
-    row = eng.solve_stats[-1]
-    assert "distress_rejects" in row and row["final_cost"] <= row["initial_cost"]
-    assert any("without fp64 escalation" in r.message for r in caplog.records)
+def _escalating(background: bool):
+    """fp32 solves with the ladder forced (escalate_rejects=0), background
+    or inline."""
+    cfg = _config()
+    return dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, dtype="float32",
+                                        adaptive_fp64=True,
+                                        escalate_rejects=0),
+        stream=dataclasses.replace(cfg.stream,
+                                   background_escalation=background))
+
+
+def _both_fp32_stream(background: bool, n: int, loop: tuple, offset: float):
+    b = _Both()
+    b.jax = JaxEngine(b.stores[0], _escalating(background))
+    b.port = SolverEngine(b.stores[1], _escalating(background), device="cpu")
+    rng = np.random.default_rng(7)
+    for i in range(n):
+        b.add_node(T0 + i * S, nse3.quat_identity(),
+                   [float(i), rng.normal() * 0.05, 0])
+    i, j = loop
+    t_rel = (np.asarray(b.stores[0].node_pose(i)[1])
+             - np.asarray(b.stores[0].node_pose(j)[1]) + offset)
+    b.add_loop_edge(T0 + i * S, T0 + j * S, nse3.quat_identity(), t_rel, 1.0)
+    return b
+
+
+def _assert_escalated_poses_match(b):
+    n = b.stores[0].node_len
+    ref = b.jax._opt_t[:n]
+    np.testing.assert_allclose(b.port._opt_t[:n], ref, rtol=0,
+                               atol=1e-8 * max(np.abs(ref).max(), 1))
+    np.testing.assert_allclose(b.port._opt_q[:n], b.jax._opt_q[:n], rtol=0,
+                               atol=1e-8)
+
+
+def test_distressed_solve_escalates_inline_as_reference():
+    """A distressed solve is re-solved on the fp64 ladder inside the
+    trigger, as the reference engine does with background escalation off
+    (tests/test_engine.py test_background_escalation_off_is_inline): the
+    trigger's row records the rung and the written-back poses are the
+    exact-step fp64 ones."""
+    b = _both_fp32_stream(False, 40, (30, 5), 0.05)
+    assert b.trigger()
+    rows = [[r for r in e.solve_stats if "fp64_escalated" in r][-1]
+            for e in (b.jax, b.port)]
+    assert rows[1]["fp64_escalated"] == rows[0]["fp64_escalated"] \
+        == "fp64-cpu"
+    assert not [r for r in b.port.solve_stats
+                if r.get("background_escalation")]
+    np.testing.assert_allclose(rows[1]["final_cost"], rows[0]["final_cost"],
+                               rtol=1e-9)
+    _assert_escalated_poses_match(b)
     with pytest.raises(IndexError):
-        eng.get_node_pose(40)
+        b.port.get_node_pose(40)
+
+
+def test_background_escalation_serves_fp32_then_lands_as_reference():
+    """tests/test_engine.py test_background_escalation_serves_fp32_then_
+    lands through both engines: the trigger serves its fp32 result (row
+    "pending"), the escalated re-solve lands by drain() and its poses agree
+    with the reference's."""
+    b = _both_fp32_stream(True, 60, (50, 10), 0.1)
+    assert b.trigger()
+    for eng in (b.jax, b.port):
+        row = [r for r in eng.solve_stats if "fp64_escalated" in r][-1]
+        assert row["fp64_escalated"] == "pending"
+        eng.drain()
+    rows = [[r for r in e.solve_stats if r.get("background_escalation")][-1]
+            for e in (b.jax, b.port)]
+    assert "escalation_error" not in rows[1], rows[1]
+    assert rows[1]["escalated_rung"] == rows[0]["escalated_rung"]
+    assert rows[1]["applied"] is rows[0]["applied"] is True
+    assert rows[1]["rung_stats"]["n_cap"] == 60     # live-length repack
+    np.testing.assert_allclose(rows[1]["final_cost"], rows[0]["final_cost"],
+                               rtol=1e-9)
+    _assert_escalated_poses_match(b)
+
+
+def test_async_dispatch_matches_sync_and_reference():
+    """tests/test_engine.py test_async_dispatch_pipeline_matches_sync with
+    the port engine in both modes, and the JAX engine's async run as the
+    reference: after the final drain all land at the same fixed point."""
+    def run(eng, store):
+        rng = np.random.default_rng(5)
+        for i in range(120):
+            store.add_node(T0 + i * S, nse3.quat_identity(),
+                           [float(i), rng.normal() * 0.05, 0])
+            if i in (50, 80, 110):
+                j = i - 40
+                store.add_loop_edge(
+                    T0 + i * S, T0 + j * S, nse3.quat_identity(),
+                    np.asarray(store.node_pose(i)[1])
+                    - np.asarray(store.node_pose(j)[1]), 1.0)
+                assert eng.trigger()
+        eng.drain()
+        eng.trigger()
+        eng.drain()
+        return eng
+
+    def cfg(async_mode):
+        c = _config()
+        return dataclasses.replace(c, stream=dataclasses.replace(
+            c.stream, async_dispatch=async_mode))
+
+    s_sync, s_async, s_ref = GraphStore(), GraphStore(), GraphStore()
+    e_sync = run(SolverEngine(s_sync, cfg(False)), s_sync)
+    e_async = run(SolverEngine(s_async, cfg(True)), s_async)
+    e_ref = run(JaxEngine(s_ref, cfg(True)), s_ref)
+    assert e_async.solved_until == e_sync.solved_until == e_ref.solved_until
+    su = e_sync.solved_until + 1
+    np.testing.assert_allclose(e_async._opt_t[:su], e_sync._opt_t[:su],
+                               atol=1e-8)
+    np.testing.assert_allclose(e_async._opt_t[:su], e_ref._opt_t[:su],
+                               atol=1e-8)
+    assert len(e_async.solve_stats) == len(e_ref.solve_stats)
+    assert not e_async.collect()
+
+
+def _port_fp32_stream(background: bool, fp64_backend: str, n: int = 40):
+    cfg = _escalating(background)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, fp64_backend=fp64_backend))
+    store = GraphStore()
+    eng = SolverEngine(store, cfg, device="cpu")
+    rng = np.random.default_rng(7)
+    for i in range(n):
+        store.add_node(T0 + i * S, nse3.quat_identity(),
+                       [float(i), rng.normal() * 0.05, 0])
+    store.add_loop_edge(T0 + 30 * S, T0 + 5 * S, nse3.quat_identity(),
+                        np.asarray(store.node_pose(30)[1])
+                        - np.asarray(store.node_pose(5)[1]) + 0.05, 1.0)
+    return eng
+
+
+@pytest.mark.parametrize("kind", ["device_rung_kernel", "host_rung_numeric"])
+def test_background_escalation_failure(monkeypatch, kind):
+    """A kernel that fails on the device rung of a background escalation is
+    raised on the solver loop (by drain(), once); a host rung's numeric
+    failure is logged and the fp32 result kept, as in the reference
+    engine."""
+    from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
+    from solve_keyframe_pose_graph_tpu_torch.ops import band_matvec as k1
+    from solve_keyframe_pose_graph_tpu_torch.solver import cpu_rung
+
+    if kind == "device_rung_kernel":
+        wrapper = k1.band_matvec
+
+        def failing(D, B, x):           # the fp64 rung's K1 fails to launch
+            if x.dtype == torch.float64:
+                raise _kernels.KernelError(
+                    "CUDA kernel band_matvec failed to launch")
+            return wrapper(D, B, x)
+
+        monkeypatch.setattr(k1, "band_matvec", failing)
+        eng = _port_fp32_stream(True, "tpu")
+    else:
+        def failing(*a, **k):
+            raise FloatingPointError("LDL pivot underflow")
+
+        monkeypatch.setattr(cpu_rung, "cpu_fp64_resolve", failing)
+        eng = _port_fp32_stream(True, "cpu")
+    assert eng.trigger()
+    served = eng._opt_t[:40].copy()
+    if kind == "device_rung_kernel":
+        with pytest.raises(_kernels.KernelError, match="band_matvec"):
+            eng.drain()
+    else:
+        eng.drain()
+    assert not eng.drain()                      # raised once, then clear
+    row = [r for r in eng.solve_stats if r.get("background_escalation")][-1]
+    assert "escalation_error" in row
+    np.testing.assert_array_equal(eng._opt_t[:40], served)
+
+
+def test_background_warmup_failure_is_raised_by_join(monkeypatch):
+    from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
+    from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
+
+    def failing(*a, **k):
+        raise _kernels.KernelError("nvcc failed (1) building gj_inv")
+
+    monkeypatch.setattr(lm_ops, "lm_solve", failing)
+    eng = SolverEngine(GraphStore(), _config(), device="cpu")
+    eng.warmup(64, 16, background=True)
+    with pytest.raises(_kernels.KernelError, match="nvcc"):
+        eng.warmup_join(timeout=60)

@@ -85,6 +85,21 @@ def test_problem_astype_and_live_lengths():
     assert tprob.live_lengths(port) == jprob.live_lengths(ref)
 
 
+@pytest.mark.parametrize("n_len,e_len,gran", [(100, 20, 1), (100, 20, 64),
+                                              (256, 64, 1)])
+def test_repack_problem_matches_reference(n_len, e_len, gran):
+    kw = _graph_kwargs()
+    ref = jprob.repack_problem(jprob.build_problem_np(dtype=np.float64, **kw),
+                               n_len, e_len, granularity=gran)
+    port = tprob.build_problem_np(dtype=np.float64, **kw)
+    got = tprob.repack_problem(port, n_len, e_len, granularity=gran)
+    for name in tprob.FIELDS:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    assert (got is port) == ((got.n_cap, got.e_cap) == (256, 64))
+
+
 def test_port_imports_no_jax():
     """Every module of the port loads with jax absent from sys.modules."""
     code = (

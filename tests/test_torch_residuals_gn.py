@@ -176,3 +176,18 @@ def test_matvecs_and_switch_recovery_match_reference(use_switch, rng):
     close(tgn.recover_switches_t(tr, tp, tx),
           jgn.recover_switches_t(jr, jp, jx))
     close(tgn.t_blocks_to_aos(tr.Aba_h), jgn.t_blocks_to_aos(jr.Aba_h))
+
+
+def test_scatter_loop_rows_matches_index_add(rng):
+    """The fixed-order loop scatter equals index_add_ over every edge slot
+    (masked and padding edges carry zero rows, and it leaves them out)."""
+    _, tp = _problems()
+    m = tp.loop_mask[:, None]
+    vb, va = (torch.from_numpy(rng.normal(size=(tp.e_cap, 36))) * m
+              for _ in range(2))
+    want = torch.zeros((tp.n_cap, 36), dtype=torch.float64)
+    want.index_add_(0, tp.loop_b, vb).index_add_(0, tp.loop_a, va)
+    close(tgn.scatter_loop_rows(tp, vb, va), want, rtol=1e-14)
+    order, counts = tp.loop_rows_by_node
+    assert len(order) == int(counts.sum()) == 2 * int(tp.loop_mask.sum())
+    assert int(tp.loop_mask.sum()) < tp.e_cap

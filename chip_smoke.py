@@ -7,9 +7,15 @@ Phases, one printed line each (or a few):
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles both hand-written kernels from csrc/ with nvcc;
   3. kernel K1 (band matvec) against its plain PyTorch version on the card,
-     at N = 8192 and a ragged N = 5000, F = 5, fp32 and fp64, with times;
+     at N = 8192 (the main path), 5120, 5000 (not a multiple of the tile)
+     and 4099 (not a multiple of 4: the one-element-copy path), F = 1, 5
+     and 8, fp32 and fp64, with times, the bound and its share;
   4. kernel K2 (batched SPD inverse) against its plain version and an fp64
-     torch.linalg.inv, at n = 1024 and 512, d = 30, with times;
+     torch.linalg.inv, at d = 12, 30, 36, 64 and n = 1024, 512, 1, fp32 and
+     fp64, with times, the bound and torch.linalg.inv's time; then the
+     strided odd blocks A[1::2] read in place: equal to the contiguous call,
+     and best_inv hands the view's own pointer to one launch, allocating
+     nothing beyond the output;
   5. the port's main path: one lm_solve at the product defaults on the
      5,000-node / 10,000-loop-edge circle graph (the bench graph), with both
      kernels' launch counts, chi^2 (also re-evaluated in fp64) against the
@@ -36,7 +42,8 @@ Phases, one printed line each (or a few):
  10. serve: the port server on a Unix socket in a thread, on the bounded
      native store; a client streams 2,000 nodes, their loop edges and a
      kidnap/unkidnap pair, asks every query kind and shuts it down.
-Each path of phases 5 and 7-10 is run with the kernels' launch counts set to
+`--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
+no result line. Each path of phases 5 and 7-10 is run with the kernels' launch counts set to
 0 just before it and read just after (phase 8's exact-step self-reference
 runs outside them). Then a JSON line with each kernel's
 numbers (launches summed over those paths, and by path), the card line
@@ -46,6 +53,7 @@ exits non-zero before that last line; there is no CPU fallback.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -56,6 +64,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -102,12 +111,22 @@ def card_line() -> str:
 
 
 def event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Median over `reps` calls of CUDA-event time per call, after warmup."""
+    """Median over `reps` calls of the device time per call, after warmup:
+    CUDA events around one call, queued behind a GPU sleep that outlasts
+    the host's time to enqueue the call, so that the interval holds the
+    call's device work and not the host's launch overhead (which, at a
+    few microseconds of kernel, would otherwise be most of it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4e9 * host_s) + 200_000     # >= 2x the enqueue at <= 2 GHz
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -163,66 +182,209 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    for name, entries in (("band_matvec", band_matvec._ENTRIES),
-                          ("gj_inv", smallinv._ENTRIES)):
-        t0 = time.perf_counter()
-        path = _kernels.build(name)
+    """Both kernels' nvcc builds, started together."""
+    kernels = (("band_matvec", band_matvec._ENTRIES),
+               ("gj_inv", smallinv._ENTRIES))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        paths = list(pool.map(_kernels.build, [k for k, _ in kernels]))
+    for (name, entries), path in zip(kernels, paths):
         _kernels.load(name, entries)
-        say("build", kernel=name, seconds=f"{time.perf_counter() - t0:.2f}",
-            library=path)
+        say("build", kernel=name, library=path)
+    say("build", parallel_seconds=f"{time.perf_counter() - t0:.2f}")
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and FLOP/s outside
+# the tensor cores by element size
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
+K1_MAIN = (8192, 5)        # (N, F) of the main path's K1 calls
+K2_MAIN = (1024, 30)       # (n, d) of the main path's first K2 call
+
+
+def bound(nbytes: float, flops: float, elsize: int) -> tuple[float, str]:
+    """(least time in ms the card could take, the resource that sets it):
+    each input read once and each output written once at HBM_BPS, or the
+    operations at the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[elsize]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cold_event_ms(fn, reps: int = 30) -> float:
+    """Median CUDA-event time per call with the 50 MB L2 cache flushed
+    (a 256 MB write) before each call, outside the timed interval."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def phase_k1(dev) -> dict:
+    """K1 against its plain version at the main path's shape and at N not a
+    multiple of the tile (5000) or of 4 (4099, the one-element-copy path),
+    F = 1, 5 and 8, fp32 and fp64."""
     rng = np.random.default_rng(1)
     out = {}
-    for N in (8192, 5000):
-        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            D, B, x = (torch.tensor(rng.normal(size=s), dtype=dt, device=dev)
-                       for s in ((36, N), (5, 36, N), (6, N)))
-            y = band_matvec.band_matvec(D, B, x)
-            ref = band_matvec.band_matvec_plain(D, B, x)
-            torch.cuda.synchronize()
-            abs_err, rel = rel_err(y, ref)
-            if not rel <= tol:
-                raise AssertionError(
-                    f"K1 disagrees at N={N} {dt}: rel err {rel} > {tol}")
-            ms = event_ms(lambda: band_matvec.band_matvec(D, B, x))
-            plain_ms = event_ms(lambda: band_matvec.band_matvec_plain(D, B, x))
-            say("k1", N=N, dtype=str(dt).split(".")[1], max_rel_err=rel,
-                max_abs_err=abs_err, tol=tol, kernel_ms=ms,
-                plain_ms=plain_ms)
-            if N == 8192 and dt == torch.float32:
-                out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    for N in (8192, 5120, 5000, 4099):
+        for F in (1, 5, 8):
+            for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+                D, B, x = (torch.tensor(rng.normal(size=s), dtype=dt,
+                                        device=dev)
+                           for s in ((36, N), (F, 36, N), (6, N)))
+                y = band_matvec.band_matvec(D, B, x)
+                ref = band_matvec.band_matvec_plain(D, B, x)
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(y, ref)
+                if not rel <= tol:
+                    raise AssertionError(f"K1 disagrees at N={N} F={F} {dt}: "
+                                         f"rel err {rel} > {tol}")
+                wide = band_matvec.takes_16_byte_copies(D, B, x)
+                if wide != (N * x.element_size() % 16 == 0):
+                    raise AssertionError(f"K1 at N={N} {dt} took the "
+                                         f"16-byte-copy path: {wide}")
+                es = x.element_size()
+                b_ms, b_by = bound((36 + 36 * F + 12) * N * es,
+                                   2 * 6 * (6 + 12 * F) * N, es)
+                ms = event_ms(lambda: band_matvec.band_matvec(D, B, x))
+                row = dict(N=N, F=F, dtype=str(dt).split(".")[1],
+                           max_rel_err=rel, max_abs_err=abs_err, tol=tol,
+                           copies="16B" if wide else "element",
+                           kernel_ms=ms, bound_ms=b_ms, bound_by=b_by,
+                           bound_share=b_ms / ms)
+                if F == 5:
+                    row["plain_ms"] = event_ms(
+                        lambda: band_matvec.band_matvec_plain(D, B, x))
+                if (N, F) == K1_MAIN:
+                    row["kernel_ms_cold_l2"] = cold_event_ms(
+                        lambda: band_matvec.band_matvec(D, B, x))
+                say("k1", **row)
+                if (N, F) == K1_MAIN and dt == torch.float32:
+                    out = dict(max_abs_err=abs_err, ms=ms,
+                               plain_ms=row["plain_ms"], bound_ms=b_ms,
+                               bound_by=b_by, bound_share=b_ms / ms,
+                               ms_cold_l2=row["kernel_ms_cold_l2"],
+                               library_ms=None,
+                               library_note="no single PyTorch call computes "
+                               "a block-banded matvec from these arrays")
     return out
 
 
+def spd_batch(rng, n: int, d: int, dev) -> torch.Tensor:
+    G = rng.normal(size=(n, d, d))
+    return torch.tensor(G @ np.swapaxes(G, -1, -2) / d + 0.5 * np.eye(d),
+                        device=dev)
+
+
 def phase_k2(dev) -> dict:
+    """K2 against its plain version and an fp64 torch.linalg.inv at d = 12,
+    30, 36 and 64 and n = 1024, 512 and 1, fp32 and fp64; the strided odd
+    blocks A[1::2] read in place (no copy); torch.linalg.inv timed beside
+    the kernel as the library yardstick (the port never calls it)."""
     rng = np.random.default_rng(2)
     out = {}
-    d = 30
-    for n in (1024, 512):
-        G = rng.normal(size=(n, d, d))
-        A64 = torch.tensor(G @ np.swapaxes(G, -1, -2) / d + 0.5 * np.eye(d),
-                           device=dev)
-        exact = torch.linalg.inv(A64)
-        for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
-            A = A64.to(dt)
-            X = smallinv.gj_inv(A)
-            P = smallinv.block_gj_inv(A)
+    tols = ((torch.float32, 1e-4), (torch.float64, 1e-10))
+    for d in (12, 30, 36, 64):
+        for n in (1024, 512, 1):
+            A64 = spd_batch(rng, n, d, dev)
+            exact = torch.linalg.inv(A64)
+            for dt, tol in tols:
+                A = A64.to(dt)
+                X = smallinv.gj_inv(A)
+                P = smallinv.gj_inv_plain(A)
+                torch.cuda.synchronize()
+                _, rel = rel_err(X, exact)
+                abs_plain, rel_plain = rel_err(X, P)
+                if not (rel <= tol and rel_plain <= tol):
+                    raise AssertionError(
+                        f"K2 disagrees at n={n} d={d} {dt}: rel err {rel} vs "
+                        f"fp64 inverse, {rel_plain} vs plain, tol {tol}")
+                es = A.element_size()
+                b_ms, b_by = bound(2 * n * d * d * es, 2 * d ** 3 * n, es)
+                row = dict(n=n, d=d, dtype=str(dt).split(".")[1],
+                           max_rel_err_vs_fp64_inv=rel,
+                           max_rel_err_vs_plain=rel_plain, tol=tol,
+                           kernel_ms=event_ms(lambda: smallinv.gj_inv(A)),
+                           bound_ms=b_ms, bound_by=b_by)
+                row["bound_share"] = b_ms / row["kernel_ms"]
+                if d == 30 and n > 1:
+                    row["plain_ms"] = event_ms(
+                        lambda: smallinv.gj_inv_plain(A))
+                    row["library_ms"] = event_ms(lambda: torch.linalg.inv(A))
+                say("k2", **row)
+                if (n, d) == K2_MAIN and dt == torch.float32:
+                    if row["kernel_ms"] > row["library_ms"]:
+                        raise AssertionError(
+                            f"K2 {row['kernel_ms']} ms is slower than "
+                            f"torch.linalg.inv {row['library_ms']} ms")
+                    out = dict(max_abs_err=abs_plain, ms=row["kernel_ms"],
+                               plain_ms=row["plain_ms"], bound_ms=b_ms,
+                               bound_by=b_by, bound_share=row["bound_share"],
+                               library_ms=row["library_ms"],
+                               library_note="torch.linalg.inv, same dtype")
+
+    # the cyclic reduction's odd blocks: a strided view, read in place
+    n, d = K2_MAIN
+    whole = spd_batch(rng, 2 * n, d, dev)
+    exact = torch.linalg.inv(whole[1::2])
+    for dt, tol in tols:
+        A = whole.to(dt)[1::2]
+        if A.is_contiguous() or smallinv.batch_stride(A) != 2 * d * d:
+            raise AssertionError(f"A[1::2] strides {A.stride()}")
+        X = smallinv.gj_inv(A)
+        C = smallinv.gj_inv(A.contiguous())
+        torch.cuda.synchronize()
+        _, rel = rel_err(X, exact)
+        if not (torch.equal(X, C) and X.is_contiguous() and rel <= tol):
+            raise AssertionError(f"K2 on A[1::2] {dt}: equal to the "
+                                 f"contiguous call {torch.equal(X, C)}, "
+                                 f"rel err {rel} vs fp64 inverse")
+        # best_inv hands the view itself to the kernel: one launch, the
+        # view's own data pointer, and no memory beyond the output
+        lib = _kernels.load("gj_inv", smallinv._ENTRIES)
+        entry = ("kpg_gj_inv_f32" if dt == torch.float32
+                 else "kpg_gj_inv_f64")
+        real = getattr(lib, entry)
+        seen = []
+
+        def spy(*args, real=real, seen=seen):
+            seen.append(args[0])
+            return real(*args)
+
+        setattr(lib, entry, spy)
+        try:
+            launches = smallinv.gj_inv.launches
             torch.cuda.synchronize()
-            _, rel = rel_err(X, exact)
-            abs_plain, rel_plain = rel_err(X, P)
-            if not (rel <= tol and rel_plain <= tol):
-                raise AssertionError(
-                    f"K2 disagrees at n={n} {dt}: rel err {rel} vs fp64 "
-                    f"inverse, {rel_plain} vs plain, tol {tol}")
-            ms = event_ms(lambda: smallinv.gj_inv(A))
-            plain_ms = event_ms(lambda: smallinv.block_gj_inv(A))
-            say("k2", n=n, d=d, dtype=str(dt).split(".")[1],
-                max_rel_err_vs_fp64_inv=rel, max_rel_err_vs_plain=rel_plain,
-                tol=tol, kernel_ms=ms, plain_ms=plain_ms)
-            if n == 1024 and dt == torch.float32:
-                out = dict(max_abs_err=abs_plain, ms=ms, plain_ms=plain_ms)
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            Y = smallinv.best_inv(A)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - before
+        finally:
+            setattr(lib, entry, real)
+        # a copy of the view would need as many bytes again as the output
+        out_bytes = Y.numel() * Y.element_size()
+        if not (seen == [A.data_ptr()] and out_bytes <= extra < 2 * out_bytes
+                and smallinv.gj_inv.launches == launches + 1
+                and torch.equal(Y, X)):
+            raise AssertionError(
+                f"best_inv(A[1::2]) {dt}: kernel pointers {seen} vs view "
+                f"{A.data_ptr()}, {extra} B allocated for a {out_bytes} B "
+                f"output, launches {smallinv.gj_inv.launches - launches}")
+        say("k2-strided", n=n, d=d, dtype=str(dt).split(".")[1],
+            batch_stride=smallinv.batch_stride(A), max_rel_err_vs_fp64_inv=rel,
+            equal_to_contiguous_call=True, best_inv_launches=1,
+            best_inv_extra_bytes=extra, kernel_ptr_is_view_ptr=True,
+            kernel_ms=event_ms(lambda: smallinv.gj_inv(A)))
     return out
 
 
@@ -677,19 +839,48 @@ def phase_serve(dev, tmp: str, card: str, n: int = 2000) -> None:
         card=repr(card))
 
 
-def main() -> None:
+PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
+          "replay", "serve")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run (of "
+                    f"{','.join(PHASES)}); a partial run prints no result "
+                    "line. Default: all")
+    only = [p for p in ap.parse_args(argv).only.split(",") if p]
+    if set(only) - set(PHASES):
+        raise SystemExit(f"unknown phases {set(only) - set(PHASES)}")
+
+    def run(phase: str) -> bool:
+        return not only or phase in only
+
     card = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    phase_solve(dev, card)
-    phase_engine(dev)
-    phase_escalation(dev, card)
+    k1 = k2 = {}
+    if run("build"):
+        phase_build()
+    if run("k1"):
+        k1 = phase_k1(dev)
+    if run("k2"):
+        k2 = phase_k2(dev)
+    if run("solve"):
+        phase_solve(dev, card)
+    if run("engine"):
+        phase_engine(dev)
+    if run("escalation"):
+        phase_escalation(dev, card)
     with tempfile.TemporaryDirectory(prefix="kpg") as tmp:
-        phase_cli_solve(tmp, card)
-        phase_replay(tmp, card)
-        phase_serve(dev, tmp, card)
+        if run("cli-solve"):
+            phase_cli_solve(tmp, card)
+        if run("replay"):
+            phase_replay(tmp, card)
+        if run("serve"):
+            phase_serve(dev, tmp, card)
+    if only:
+        say("partial", phases=",".join(only), card=repr(card))
+        return
     by_path = {k: {p: n[k] for p, n in PATH_LAUNCHES.items()}
                for k in WRAPPERS}
     kernels = [

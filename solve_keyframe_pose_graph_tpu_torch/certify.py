@@ -44,8 +44,8 @@ import time
 
 import numpy as np
 
-from solve_keyframe_pose_graph_tpu.config import Config
-from solve_keyframe_pose_graph_tpu.graph import g2o as g2o_io
+from solve_keyframe_pose_graph_tpu_torch.config import Config
+from solve_keyframe_pose_graph_tpu_torch.graph import g2o as g2o_io
 
 # fp64 exact-step reference chi^2 of the benchmark harness's problem per
 # instance (BASELINE.md "Robustness certification", computed by the JAX

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from solve_keyframe_pose_graph_tpu.config import Config
+from solve_keyframe_pose_graph_tpu_torch.config import Config
 
 
 # ---------------------------------------------------------------------------
@@ -37,11 +37,11 @@ from solve_keyframe_pose_graph_tpu.config import Config
 
 def _store_from_input(path: str, edge_mask=None, native: bool = False):
     """GraphStore from a log_posegraph.json dump or a .g2o file."""
-    from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
+    from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
     from solve_keyframe_pose_graph_tpu_torch.graph.native import make_store
 
     if path.endswith(".g2o"):
-        from solve_keyframe_pose_graph_tpu.graph import g2o as g2o_io
+        from solve_keyframe_pose_graph_tpu_torch.graph import g2o as g2o_io
 
         g = g2o_io.load_g2o(path)
         inp = g2o_io.g2o_to_problem_inputs(g)
@@ -120,7 +120,7 @@ def _dump_solution(path, store, eng, cmp_):
     """log_optimized_poses.json analog (PoseGraphSLAM.cpp:1111-1207), plus
     every row of the engine's solve_stats (each trigger and each escalated
     re-solve)."""
-    from solve_keyframe_pose_graph_tpu.utils import nse3
+    from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
     comp = cmp_.assemble()
     nodes = []

@@ -31,10 +31,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
-from solve_keyframe_pose_graph_tpu.graph.worlds import WorldRegistry
+from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
+from solve_keyframe_pose_graph_tpu_torch.graph.worlds import WorldRegistry
 from solve_keyframe_pose_graph_tpu_torch.solver.engine import SolverEngine
-from solve_keyframe_pose_graph_tpu.utils import nse3
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
 
 @dataclasses.dataclass

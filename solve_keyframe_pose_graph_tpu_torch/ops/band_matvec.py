@@ -8,11 +8,14 @@ B (F,36,N) and x (6,N):
            + sum_f sum_j B[f,6i+j,u]     x[j,u-f-1]
            + sum_f sum_j B[f,6j+i,u+f+1] x[j,u+f+1]
 
-Source: csrc/band_matvec.cu (CUDA C++ for sm_90a; one thread per node
-column, coalesced entry-major loads, the upper band read in place so no
-shifted copy of B is built, x staged with its halo in shared memory, any N).
-What bounds it and why it is not tuned: see the note in that file. The plain
-version is gn.band_matvec_t.
+Source: csrc/band_matvec.cu (CUDA C++ for sm_90a): a block per tile of 32
+node columns stages its D tile, its B tile with the upper band's halo and
+its x window in shared memory by asynchronous 16-byte copies issued before
+any arithmetic, so each byte of D and B is read from device memory once and
+the upper band is read from the staged halo; one thread per output. Any N
+and F <= MAX_FANOUT; an N that is not a multiple of 4 (fp32) or 2 (fp64)
+takes the same kernel with one element per copy. What bounds it: see the
+note in that file. The plain version is gn.band_matvec_t.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ import torch
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import gn
 
-MAX_FANOUT = 32          # the kernel's shared x window holds 2*F halo columns
+MAX_FANOUT = 32          # the contract; the kernel stages F in groups
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _ENTRIES = {
-    "kpg_band_matvec_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
-    "kpg_band_matvec_f64": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "kpg_band_matvec_f32": [_P, _P, _P, _P, _I, _I, _P],
+    "kpg_band_matvec_f64": [_P, _P, _P, _P, _I, _I, _P],
+    "kpg_band_matvec_aligned": [_P, _P, _P, _I, _I],
 }
 
 
@@ -80,3 +85,13 @@ def band_matvec(D, B, x):
 
 
 band_matvec.launches = 0
+
+
+def takes_16_byte_copies(D, B, x) -> bool:
+    """Whether K1 stages these CUDA tensors with 16-byte copies (N a
+    multiple of 16 bytes, aligned pointers) rather than one element per
+    copy. Asks the kernel's own library, so it builds it."""
+    lib = _kernels.load("band_matvec", _ENTRIES)
+    return bool(lib.kpg_band_matvec_aligned(
+        D.data_ptr(), B.data_ptr(), x.data_ptr(), x.element_size(),
+        x.shape[1]))

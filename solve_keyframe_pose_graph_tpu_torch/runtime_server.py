@@ -35,11 +35,11 @@ from typing import Optional
 import numpy as np
 
 from solve_keyframe_pose_graph_tpu_torch.compose.composer import Composer
-from solve_keyframe_pose_graph_tpu.config import Config
-from solve_keyframe_pose_graph_tpu.graph import messages as msgs
+from solve_keyframe_pose_graph_tpu_torch.config import Config
+from solve_keyframe_pose_graph_tpu_torch.graph import messages as msgs
 from solve_keyframe_pose_graph_tpu_torch.solver.engine import SolverEngine
-from solve_keyframe_pose_graph_tpu.utils import nse3
-from solve_keyframe_pose_graph_tpu.utils.log import StatusPrinter, get_logger
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
+from solve_keyframe_pose_graph_tpu_torch.utils.log import StatusPrinter, get_logger
 
 
 def _pose_matrix_list(q, t):
@@ -49,7 +49,7 @@ def _pose_matrix_list(q, t):
 class PoseGraphServer:
     def __init__(self, store, config: Optional[Config] = None,
                  save_dir: Optional[str] = None,
-                 load_dir: Optional[str] = None, device="cpu"):
+                 load_dir: Optional[str] = None, device="cuda"):
         self.store = store
         self.config = config or Config()
         self.engine = SolverEngine(store, self.config, device=device)

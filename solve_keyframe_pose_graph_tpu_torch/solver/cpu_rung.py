@@ -61,7 +61,7 @@ def available(lm_kw: dict | None = None) -> bool:
         import scipy  # noqa: F401
     except ImportError:
         return False
-    from solve_keyframe_pose_graph_tpu.solver import native_ldl
+    from solve_keyframe_pose_graph_tpu_torch.solver import native_ldl
 
     return native_ldl.load_library() is not None
 
@@ -97,7 +97,7 @@ def lm_solve_native(problem: Problem, lm_kw: dict):
 
     `problem` must be a CPU fp64 Problem (host_problem64). Returns an
     ops/lm.LMResult of CPU tensors sized to this problem's capacities."""
-    from solve_keyframe_pose_graph_tpu.solver.native_ldl import BlockSystem
+    from solve_keyframe_pose_graph_tpu_torch.solver.native_ldl import BlockSystem
 
     if problem.device.type != "cpu" or problem.dtype != torch.float64:
         raise ValueError("lm_solve_native takes a CPU float64 Problem, got "

@@ -47,16 +47,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from solve_keyframe_pose_graph_tpu.config import Config
-from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
-from solve_keyframe_pose_graph_tpu.graph import synthetic
-from solve_keyframe_pose_graph_tpu.utils import nse3
-from solve_keyframe_pose_graph_tpu.utils.timing import PhaseTimer
+from solve_keyframe_pose_graph_tpu_torch.config import Config
+from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
+from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
+from solve_keyframe_pose_graph_tpu_torch.utils.timing import PhaseTimer
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
-    Problem, build_problem_np,
+    Problem, build_problem_np, solve_device,
 )
 
 log = logging.getLogger(__name__)
@@ -103,10 +103,10 @@ def _on_stream(device: torch.device):
 
 class SolverEngine:
     def __init__(self, store: GraphStore, config: Optional[Config] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.store = store
         self.config = config or Config()
-        self.device = torch.device(device)
+        self.device = solve_device(device)
 
         cap = self.config.capacity.initial_nodes
         self._opt_q = np.zeros((cap, 4)); self._opt_q[:, 3] = 1.0
@@ -260,13 +260,18 @@ class SolverEngine:
         # ---- 4: initial guesses, 4-case table
         with timer.phase("initial_guesses"):
             self._set_initial_guesses(node_len, node_worlds)
-        # ---- 5: soft anchors on set-root world starts
+        # ---- 5: soft anchors on set-root world starts. A live store may
+        # have grown since node_len was read (the server ingests beside the
+        # solver): a world whose first node is not in this solve's nodes
+        # gets no anchor, and a world's end is clamped to them. The
+        # reference reads the live store here and can index past its
+        # arrays (engine.py:343-356).
         prior_idx, prior_q, prior_t, prior_w = [], [], [], []
         for ww in range(store.n_worlds()):
             ww_setid = worlds.find_setID_of_world_i(ww)
             ww_start = store.nodeidx_of_world_i_started(ww)
-            ww_end = store.nodeidx_of_world_i_ended(ww)
-            if ww_start < 0:
+            ww_end = min(store.nodeidx_of_world_i_ended(ww), node_len - 1)
+            if not 0 <= ww_start < node_len:
                 continue
             if ww_setid >= 0 and ww_setid == ww:
                 prior_idx.append(ww_start)

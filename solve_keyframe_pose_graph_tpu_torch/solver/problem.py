@@ -27,7 +27,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from solve_keyframe_pose_graph_tpu.utils import nse3
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
 
 @dataclasses.dataclass
@@ -106,6 +106,19 @@ class Problem:
 FIELDS = tuple(f.name for f in dataclasses.fields(Problem))
 
 
+def solve_device(device) -> torch.device:
+    """The device an entry point solves on. The entry points default to
+    "cuda"; without a CUDA device that raises here, at construction, and
+    never carries on on the CPU: a caller that wants the CPU passes
+    device="cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but no CUDA device is "
+            "available; pass device=\"cpu\" to solve on the CPU")
+    return dev
+
+
 def problem_from_arrays(fields: Mapping[str, np.ndarray], device) -> Problem:
     """A Problem from one numpy array per field, e.g. a reference-package
     Problem read field by field through np.asarray, so that both packages
@@ -173,11 +186,13 @@ def build_problem_np(
     odo_decay: float = 0.9,
     odo_yaw_sigma2: float = 6.0,
     dtype=np.float32,
-    device="cpu",
+    device="cuda",
 ) -> Problem:
     """Host-side construction of the padded Problem from numpy graph state,
-    returned as tensors on `device`. The odometry observations and their
+    returned as tensors on `device` (the card unless the caller asks for
+    the CPU, see solve_device). The odometry observations and their
     yaw-dependent weights are computed on host in float64, then cast."""
+    device = solve_device(device)
     n = q.shape[0]
     e = loop_pairs.shape[0] if loop_pairs.size else 0
     p = len(prior_idx)

@@ -172,3 +172,22 @@ def test_build_reuses_a_built_library(tmp_path, monkeypatch):
 
     monkeypatch.setattr(_kernels, "find_nvcc", no_nvcc)
     assert _kernels.build("k") == out
+
+
+@pytest.mark.parametrize("n,F", [(4099, 1), (1027, 8), (70, 32)])
+def test_wrapper_takes_n_not_a_multiple_of_4_and_f_up_to_the_limit(rng, n, F):
+    """The kernel takes any N (one element per copy where N is not a
+    multiple of 16 bytes) and F up to MAX_FANOUT; the wrapper passes both."""
+    D, B, x = _inputs(rng, n, F)
+    got = band_matvec.band_matvec(*map(torch.from_numpy, (D, B, x)))
+    ref = _loop_ref(D, B, x)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=RTOL * np.abs(ref).max())
+    assert F <= band_matvec.MAX_FANOUT
+
+
+def test_wrapper_raises_on_other_devices(rng):
+    D, B, x = (t.to("meta") for t in map(torch.from_numpy,
+                                         _inputs(rng, 64, 5)))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        band_matvec.band_matvec(D, B, x)

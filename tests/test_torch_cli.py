@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from solve_keyframe_pose_graph_tpu import cli as jcli
-from solve_keyframe_pose_graph_tpu.config import CapacityConfig
 from solve_keyframe_pose_graph_tpu_torch import cli
+from solve_keyframe_pose_graph_tpu_torch.config import CapacityConfig
 
 from test_cli_g2o import sphere_g2o  # noqa: F401
 from test_torch_engine import _config

@@ -14,13 +14,15 @@ import numpy as np
 from solve_keyframe_pose_graph_tpu.compose.composer import (
     Composer as JaxComposer,
 )
-from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
+from solve_keyframe_pose_graph_tpu import config as jconfig
+from solve_keyframe_pose_graph_tpu.graph.store import GraphStore as JaxStore
 from solve_keyframe_pose_graph_tpu.solver.engine import (
     SolverEngine as JaxEngine,
 )
-from solve_keyframe_pose_graph_tpu.utils import nse3
 from solve_keyframe_pose_graph_tpu_torch.compose.composer import Composer
+from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
 from solve_keyframe_pose_graph_tpu_torch.solver.engine import SolverEngine
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
 from test_composer import S, T0, _assert_comp_equal
 from test_torch_engine import _config
@@ -31,8 +33,8 @@ class _Sessions:
     """A JAX and a port session (store, engine, Composer), fed alike."""
 
     def __init__(self):
-        self.stores = (GraphStore(), GraphStore())
-        self.engines = (JaxEngine(self.stores[0], _config()),
+        self.stores = (JaxStore(), GraphStore())
+        self.engines = (JaxEngine(self.stores[0], _config(jconfig)),
                         SolverEngine(self.stores[1], _config(), device="cpu"))
         self.composers = (JaxComposer(self.stores[0], self.engines[0]),
                           Composer(self.stores[1], self.engines[1]))

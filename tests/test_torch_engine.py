@@ -15,36 +15,38 @@ import numpy as np
 import pytest
 import torch
 
-from solve_keyframe_pose_graph_tpu.config import (
-    CapacityConfig, Config, IOConfig, SolverConfig, StreamConfig,
-)
-from solve_keyframe_pose_graph_tpu.graph.store import GraphStore
+from solve_keyframe_pose_graph_tpu import config as jconfig
+from solve_keyframe_pose_graph_tpu.graph.store import GraphStore as JaxStore
 from solve_keyframe_pose_graph_tpu.solver.engine import (
     SolverEngine as JaxEngine,
 )
-from solve_keyframe_pose_graph_tpu.utils import nse3
+from solve_keyframe_pose_graph_tpu_torch import config as tconfig
+from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
 from solve_keyframe_pose_graph_tpu_torch.solver.engine import SolverEngine
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
 from test_engine import S, T0, yaw_quat
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 
-def _config():
-    return Config(
-        solver=SolverConfig(dtype="float64", adaptive_fp64=False,
-                            loop_impl="scatter", band_impl="aos"),
-        stream=StreamConfig(async_dispatch=False, incremental_build=False),
+def _config(c=tconfig):
+    """The test config, built from the port's config module (`c=tconfig`)
+    or the JAX package's (`c=jconfig`): each engine takes its own."""
+    return c.Config(
+        solver=c.SolverConfig(dtype="float64", adaptive_fp64=False,
+                              loop_impl="scatter", band_impl="aos"),
+        stream=c.StreamConfig(async_dispatch=False, incremental_build=False),
         # small first buckets keep both packages' CPU solves short
-        capacity=CapacityConfig(initial_nodes=128, initial_edges=32),
-        io=IOConfig(compile_cache_dir=""))
+        capacity=c.CapacityConfig(initial_nodes=128, initial_edges=32),
+        io=c.IOConfig(compile_cache_dir=""))
 
 
 class _Both:
     """One store per engine, fed the same calls."""
 
     def __init__(self):
-        self.stores = (GraphStore(), GraphStore())
-        self.jax = JaxEngine(self.stores[0], _config())
+        self.stores = (JaxStore(), GraphStore())
+        self.jax = JaxEngine(self.stores[0], _config(jconfig))
         self.port = SolverEngine(self.stores[1], _config(), device="cpu")
 
     def __getattr__(self, name):          # store calls go to both stores
@@ -176,10 +178,10 @@ def test_load_state_freezes_restored_nodes_as_reference():
         np.testing.assert_array_equal(b.port.get_node_pose(i)[1], t_old[i])
 
 
-def _escalating(background: bool):
+def _escalating(background: bool, c=tconfig):
     """fp32 solves with the ladder forced (escalate_rejects=0), background
     or inline."""
-    cfg = _config()
+    cfg = _config(c)
     return dataclasses.replace(
         cfg, solver=dataclasses.replace(cfg.solver, dtype="float32",
                                         adaptive_fp64=True,
@@ -190,7 +192,7 @@ def _escalating(background: bool):
 
 def _both_fp32_stream(background: bool, n: int, loop: tuple, offset: float):
     b = _Both()
-    b.jax = JaxEngine(b.stores[0], _escalating(background))
+    b.jax = JaxEngine(b.stores[0], _escalating(background, jconfig))
     b.port = SolverEngine(b.stores[1], _escalating(background), device="cpu")
     rng = np.random.default_rng(7)
     for i in range(n):
@@ -276,15 +278,15 @@ def test_async_dispatch_matches_sync_and_reference():
         eng.drain()
         return eng
 
-    def cfg(async_mode):
-        c = _config()
-        return dataclasses.replace(c, stream=dataclasses.replace(
-            c.stream, async_dispatch=async_mode))
+    def cfg(async_mode, c=tconfig):
+        cf = _config(c)
+        return dataclasses.replace(cf, stream=dataclasses.replace(
+            cf.stream, async_dispatch=async_mode))
 
-    s_sync, s_async, s_ref = GraphStore(), GraphStore(), GraphStore()
-    e_sync = run(SolverEngine(s_sync, cfg(False)), s_sync)
-    e_async = run(SolverEngine(s_async, cfg(True)), s_async)
-    e_ref = run(JaxEngine(s_ref, cfg(True)), s_ref)
+    s_sync, s_async, s_ref = GraphStore(), GraphStore(), JaxStore()
+    e_sync = run(SolverEngine(s_sync, cfg(False), device="cpu"), s_sync)
+    e_async = run(SolverEngine(s_async, cfg(True), device="cpu"), s_async)
+    e_ref = run(JaxEngine(s_ref, cfg(True, jconfig)), s_ref)
     assert e_async.solved_until == e_sync.solved_until == e_ref.solved_until
     su = e_sync.solved_until + 1
     np.testing.assert_allclose(e_async._opt_t[:su], e_sync._opt_t[:su],
@@ -363,3 +365,85 @@ def test_background_warmup_failure_is_raised_by_join(monkeypatch):
     eng.warmup(64, 16, background=True)
     with pytest.raises(_kernels.KernelError, match="nvcc"):
         eng.warmup_join(timeout=60)
+
+
+def test_entry_points_default_to_the_card():
+    """SolverEngine, PoseGraphServer and build_problem_np target "cuda"
+    unless asked for the CPU; without a CUDA device the default raises at
+    construction and nothing carries on on the CPU."""
+    import inspect
+
+    from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
+        PoseGraphServer,
+    )
+    from solve_keyframe_pose_graph_tpu_torch.solver import problem as tprob
+
+    for fn in (SolverEngine.__init__, PoseGraphServer.__init__,
+               tprob.build_problem_np):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert SolverEngine(GraphStore(), _config()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SolverEngine(GraphStore(), _config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PoseGraphServer(GraphStore(), _config())
+    from test_torch_problem import _graph_kwargs
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tprob.build_problem_np(**_graph_kwargs())
+    assert SolverEngine(GraphStore(), _config(),
+                        device="cpu").device.type == "cpu"
+
+
+def test_anchors_come_from_the_solved_nodes_under_concurrent_ingest():
+    """The server ingests beside the solver: nodes, a kidnap and a new
+    world can land between the trigger's read of node_len and its soft
+    anchors. The trigger then solves the nodes it read, anchored as if the
+    late ones had not arrived. (The reference takes the new world's first
+    node as an anchor and indexes its pose arrays with it, past their end
+    once that node is beyond the capacity: 130 > 128 here.)"""
+
+    class RacingStore(GraphStore):
+        armed = False
+
+        def node_worlds(self):
+            if self.armed:                    # lands mid-trigger, once
+                self.armed = False
+                for j in range(30):           # world 0 goes on
+                    self.add_node(T0 + (100 + j) * S, nse3.quat_identity(),
+                                  [100.0 + j, 0, 0])
+                kidnap(self)
+                for j in range(30):           # world 1
+                    self.add_node(T0 + (131 + j) * S, nse3.quat_identity(),
+                                  [500.0 + j, 0, 0])
+            return super().node_worlds()
+
+    def kidnap(store):
+        store.kidnap_indicator(T0 + 130 * S, "kidnapped")
+        store.kidnap_indicator(T0 + 130 * S + S // 2, "unkidnapped")
+
+    def feed(store):
+        rng = np.random.default_rng(4)
+        for i in range(100):
+            store.add_node(T0 + i * S, nse3.quat_identity(),
+                           [float(i), rng.normal() * 0.05, 0])
+        store.add_loop_edge(T0 + 90 * S, T0 + 10 * S, nse3.quat_identity(),
+                            [-80.0, 0.3, 0], 1.0)
+
+    # the calm store has the same kidnap but none of the late nodes
+    racing, calm = RacingStore(), GraphStore()
+    feed(racing)
+    feed(calm)
+    kidnap(calm)
+    racing.armed = True
+    engines = [SolverEngine(s, _config(), device="cpu")
+               for s in (racing, calm)]
+    assert all(e.trigger() for e in engines)
+    assert racing.node_len == 160 and racing.n_worlds() == 2
+    assert racing.nodeidx_of_world_i_started(1) == 130
+    rows = [e.solve_stats[-1] for e in engines]
+    assert rows[0]["node_len"] == rows[1]["node_len"] == 100
+    np.testing.assert_allclose(rows[0]["final_cost"], rows[1]["final_cost"],
+                               rtol=1e-12, atol=1e-30)
+    np.testing.assert_array_equal(engines[0]._opt_t[:100],
+                                  engines[1]._opt_t[:100])

@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from solve_keyframe_pose_graph_tpu.graph import synthetic
 from solve_keyframe_pose_graph_tpu.ops import lm as jlm
 from solve_keyframe_pose_graph_tpu.solver import cpu_rung as jrung
 from solve_keyframe_pose_graph_tpu.solver import problem as jprob
+from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as tlm
 from solve_keyframe_pose_graph_tpu_torch.solver import cpu_rung as trung
 from solve_keyframe_pose_graph_tpu_torch.solver import problem as tprob
@@ -61,7 +61,7 @@ def test_lm_solve_native_matches_reference(rungs_ready):
         jrung._host_problem64(jprob.build_problem_np(dtype=np.float64,
                                                      **kw)), LM_KW)
     got = trung.lm_solve_native(
-        trung.host_problem64(tprob.build_problem_np(dtype=np.float64, **kw)),
+        trung.host_problem64(tprob.build_problem_np(device="cpu", dtype=np.float64, **kw)),
         LM_KW)
     for name in ("iterations", "successful_steps", "distress_rejects",
                  "converged"):
@@ -77,7 +77,7 @@ def test_lm_solve_native_matches_reference(rungs_ready):
 
 
 def test_lm_solve_native_rejects_device_or_fp32_problem(rungs_ready):
-    p32 = tprob.build_problem_np(dtype=np.float32, **_inputs())
+    p32 = tprob.build_problem_np(device="cpu", dtype=np.float32, **_inputs())
     with pytest.raises(ValueError, match="CPU float64"):
         trung.lm_solve_native(p32, LM_KW)
 
@@ -91,7 +91,7 @@ def test_escalate_resolve_host_rung_matches_reference(rungs_ready, backend):
     ref, ref_rung = jlm.escalate_resolve(
         jprob.build_problem_np(dtype=np.float32, **kw), LM_KW, 0,
         fp64_backend="cpu")
-    prob = tprob.build_problem_np(dtype=np.float32, **kw)
+    prob = tprob.build_problem_np(device="cpu", dtype=np.float32, **kw)
     got, rung, stats = tlm.escalate_resolve(prob, LM_KW, 0,
                                             fp64_backend=backend)
     assert rung == ref_rung == "fp64-cpu"
@@ -133,7 +133,7 @@ def test_escalate_resolve_device_rung_matches_reference(monkeypatch):
     runs = []
     for lm_kw in (LM_KW, exact):
         got, rung, stats = tlm.escalate_resolve(
-            tprob.build_problem_np(dtype=np.float32, **kw), lm_kw, 0,
+            tprob.build_problem_np(device="cpu", dtype=np.float32, **kw), lm_kw, 0,
             fp64_backend="tpu")
         assert rung == "fp64" and stats["total_s"] > 0
         assert got.q.dtype == torch.float64
@@ -153,14 +153,14 @@ def test_escalate_resolve_device_rung_matches_reference(monkeypatch):
                                    atol=1e-8 * _scale(r), err_msg=name)
 
     short = dict(LM_KW, max_iterations=1)
-    big = tprob.build_problem_np(dtype=np.float32,
+    big = tprob.build_problem_np(device="cpu", dtype=np.float32,
                                  **dict(kw, n_cap=2048, e_cap=32))
     padded = tlm.fp64_resolve(big, short)
     assert tuple(padded.q.shape) == (2048, 4)
     assert tuple(padded.switch.shape) == (32,)
     np.testing.assert_array_equal(padded.t[1024:].numpy(),
                                   big.t[1024:].double().numpy())
-    block = tlm.fp64_resolve(tprob.build_problem_np(
+    block = tlm.fp64_resolve(tprob.build_problem_np(device="cpu", 
         dtype=np.float32, **dict(kw, n_cap=1024, e_cap=32)), short)
     for name in ("q", "t", "switch"):
         alone = getattr(block, name)
@@ -170,7 +170,7 @@ def test_escalate_resolve_device_rung_matches_reference(monkeypatch):
 
 
 def test_lm_solve_adaptive_escalates_only_on_distress(rungs_ready):
-    prob = tprob.build_problem_np(dtype=np.float32, **_inputs())
+    prob = tprob.build_problem_np(device="cpu", dtype=np.float32, **_inputs())
     res, escalated = tlm.lm_solve_adaptive(prob, escalate_rejects=0,
                                            **LM_KW)
     assert escalated == "fp64-cpu" and res.q.dtype == torch.float64
@@ -184,7 +184,7 @@ def test_lm_solve_adaptive_escalates_only_on_distress(rungs_ready):
 
 
 def test_escalate_resolve_policy_errors(monkeypatch):
-    prob = tprob.build_problem_np(dtype=np.float32, **_inputs())
+    prob = tprob.build_problem_np(device="cpu", dtype=np.float32, **_inputs())
     with pytest.raises(ValueError, match="fp64_backend"):
         tlm.escalate_resolve(prob, LM_KW, 0, fp64_backend="gpu")
     monkeypatch.setattr(trung, "available", lambda lm_kw=None: False)
@@ -195,7 +195,7 @@ def test_escalate_resolve_policy_errors(monkeypatch):
 def test_host_rung_failure_is_logged_then_device_rung(monkeypatch, caplog):
     """Unlike the reference (lm.py:939), "auto" does not swallow a host-rung
     failure: it is logged at WARNING before the device rung runs."""
-    prob = tprob.build_problem_np(dtype=np.float32, **_inputs(n=40, loops=6))
+    prob = tprob.build_problem_np(device="cpu", dtype=np.float32, **_inputs(n=40, loops=6))
     monkeypatch.setattr(trung, "available", lambda lm_kw=None: True)
 
     def boom(*a, **k):
@@ -213,9 +213,9 @@ def test_host_rung_failure_is_logged_then_device_rung(monkeypatch, caplog):
 
 
 def test_solve_problem_follows_config(rungs_ready):
-    from solve_keyframe_pose_graph_tpu.config import SolverConfig
+    from solve_keyframe_pose_graph_tpu_torch.config import SolverConfig
 
-    prob = tprob.build_problem_np(dtype=np.float32, **_inputs())
+    prob = tprob.build_problem_np(device="cpu", dtype=np.float32, **_inputs())
     cfg = SolverConfig(escalate_rejects=0, preconditioner="band")
     res, escalated = tlm.solve_problem_adaptive(prob, cfg)
     assert escalated == "fp64-cpu"

@@ -11,8 +11,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from solve_keyframe_pose_graph_tpu.config import SolverConfig
+from solve_keyframe_pose_graph_tpu import config as jconfig
 from solve_keyframe_pose_graph_tpu.ops import lm as jlm
+from solve_keyframe_pose_graph_tpu_torch import config as tconfig
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as tlm
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
     FIELDS, problem_from_arrays,
@@ -76,8 +77,8 @@ def test_lm_solve_rejects_unported_options():
 
 
 def test_cfg_lm_kwargs_and_needs_escalation_match_reference():
-    cfg = SolverConfig()
-    ref = jlm.cfg_lm_kwargs(cfg)
+    cfg = tconfig.SolverConfig()
+    ref = jlm.cfg_lm_kwargs(jconfig.SolverConfig())
     got = tlm.cfg_lm_kwargs(cfg)
     dropped = {"loop_impl", "band_impl", "tile_k"}
     assert set(ref) - set(got) == dropped

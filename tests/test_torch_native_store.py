@@ -2,7 +2,7 @@
 
 The reference store's node_worlds() can be written past its end by the C
 core when a node is appended between the Python-side count and the C call.
-The port's subclass reads into a buffer of the full reservation and returns
+The port's store reads into a buffer of the full reservation and returns
 the prefix counted first. The stress test runs in a subprocess, so that a
 heap corruption shows as a non-zero return code and not as a dead test
 worker."""
@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 
 from solve_keyframe_pose_graph_tpu.graph import native as jnative
-from solve_keyframe_pose_graph_tpu.utils import nse3
 from solve_keyframe_pose_graph_tpu_torch.graph import native
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 1_000_000_000
@@ -50,7 +50,7 @@ def test_node_worlds_equals_reference_on_a_quiescent_store(native_lib):
     np.testing.assert_array_equal(got.node_worlds(), want)
     assert set(want.tolist()) == {0, -1, 1, -2, 2}
     assert got.max_capacity == 4096
-    # the inherited world queries go through the bounded read too
+    # the store's world queries go through the bounded read too
     for w in range(got.n_worlds()):
         assert (got.nodeidx_of_world_i_started(w)
                 == ref.nodeidx_of_world_i_started(w))
@@ -58,7 +58,12 @@ def test_node_worlds_equals_reference_on_a_quiescent_store(native_lib):
 
 def test_make_store_picks_the_bounded_store(native_lib):
     assert type(native.make_store(native=True)) is native.NativeGraphStore
-    assert type(native.make_store(native=False)).__name__ == "GraphStore"
+    from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
+
+    assert type(native.make_store(native=False)) is GraphStore
+    # the port's own binding, not a subclass of the JAX package's
+    assert not issubclass(native.NativeGraphStore, jnative.NativeGraphStore)
+    assert issubclass(native.NativeGraphStore, GraphStore)
 
 
 _STRESS = r"""

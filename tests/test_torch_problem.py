@@ -1,6 +1,7 @@
 """PyTorch port: Problem construction against the JAX package, and the
-port's import hygiene (it must never import jax)."""
+port's import hygiene (it imports neither jax nor the JAX package)."""
 
+import json
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ from solve_keyframe_pose_graph_tpu.graph import synthetic
 from solve_keyframe_pose_graph_tpu.solver import problem as jprob
 from solve_keyframe_pose_graph_tpu_torch.solver import problem as tprob
 
+from test_cli_g2o import sphere_g2o  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +46,7 @@ def _fields(p):
 def test_build_problem_matches_reference(dtype):
     kw = _graph_kwargs()
     ref = _fields(jprob.build_problem_np(dtype=dtype, **kw))
-    port = tprob.build_problem_np(dtype=dtype, **kw)
+    port = tprob.build_problem_np(device="cpu", dtype=dtype, **kw)
     assert len(tprob.FIELDS) == 20
     for name in tprob.FIELDS:
         got = getattr(port, name)
@@ -61,7 +63,7 @@ def test_build_problem_rejects_overflow():
     kw = _graph_kwargs()
     kw["e_cap"] = 16
     with pytest.raises(ValueError, match="capacities"):
-        tprob.build_problem_np(**kw)
+        tprob.build_problem_np(device="cpu", **kw)
 
 
 def test_problem_from_arrays_round_trips():
@@ -91,7 +93,7 @@ def test_repack_problem_matches_reference(n_len, e_len, gran):
     kw = _graph_kwargs()
     ref = jprob.repack_problem(jprob.build_problem_np(dtype=np.float64, **kw),
                                n_len, e_len, granularity=gran)
-    port = tprob.build_problem_np(dtype=np.float64, **kw)
+    port = tprob.build_problem_np(device="cpu", dtype=np.float64, **kw)
     got = tprob.repack_problem(port, n_len, e_len, granularity=gran)
     for name in tprob.FIELDS:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
@@ -100,20 +102,64 @@ def test_repack_problem_matches_reference(n_len, e_len, gran):
     assert (got is port) == ((got.n_cap, got.e_cap) == (256, 64))
 
 
-def test_port_imports_no_jax():
-    """Every module of the port loads with jax absent from sys.modules."""
-    code = (
-        "import pkgutil, sys, importlib\n"
-        "import solve_keyframe_pose_graph_tpu_torch as pkg\n"
-        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
-        "pkg.__name__ + '.')]\n"
-        "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 14, names\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib')))\n"
-        "assert not bad, bad\n"
-        "print(len(names))\n")
+_ISOLATED = r"""
+import importlib, pkgutil, sys
+
+class Refuse:
+    # refuses jax and every module of the JAX package
+    def find_spec(self, name, path=None, target=None):
+        top = name.partition(".")[0]
+        if top in ("jax", "jaxlib", "solve_keyframe_pose_graph_tpu"):
+            raise ImportError("the port imported " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import solve_keyframe_pose_graph_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke                       # its main() is guarded
+assert len(names) >= 25, names
+
+from solve_keyframe_pose_graph_tpu_torch import cli
+from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
+from solve_keyframe_pose_graph_tpu_torch.ops.lm import lm_solve
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
+    build_problem_np)
+
+g = synthetic.circle_graph(n_nodes=64, n_loops=8, seed=0)
+prob = build_problem_np(
+    q=g.vio_q, t=g.vio_t, vio_q=g.vio_q, vio_t=g.vio_t,
+    node_valid=np.ones(64, bool), loop_pairs=g.loop_pairs, loop_q=g.loop_q,
+    loop_t=g.loop_t, loop_w=g.loop_w, loop_valid=np.ones(8, bool),
+    switch=np.full(8, 0.99), prior_idx=np.array([0]), prior_q=g.vio_q[:1],
+    prior_t=g.vio_t[:1], prior_w=np.array([1.1]), n_cap=64, e_cap=8,
+    p_cap=2, device="cpu")
+res = lm_solve(prob, max_iterations=3, preconditioner="band+coarse",
+               coarse_group=16)
+assert float(res.final_cost) < float(res.initial_cost)
+assert cli.main(["solve", "--input", sys.argv[1], "--output", sys.argv[2],
+                 "--max-iters", "2", "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules if m.partition(".")[0] in
+             ("jax", "jaxlib", "solve_keyframe_pose_graph_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax(sphere_g2o, tmp_path):  # noqa: F811
+    """Every module of the port and chip_smoke.py load, and a CPU lm_solve
+    and a CLI solve run, with jax and the JAX package refused by an import
+    hook."""
+    path, _ = sphere_g2o
+    out_json = str(tmp_path / "solve.json")
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
+    out = subprocess.run([sys.executable, "-c", _ISOLATED, path, out_json],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= 25
+    sol = json.load(open(out_json))
+    assert len(sol["nodes"]) == 300 and sol["solved_until"] == 299

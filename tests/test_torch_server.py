@@ -9,13 +9,13 @@ import time
 
 import numpy as np
 
-from solve_keyframe_pose_graph_tpu.graph import messages as msgs
-from solve_keyframe_pose_graph_tpu.graph import synthetic
-from solve_keyframe_pose_graph_tpu.utils import nse3
+from solve_keyframe_pose_graph_tpu_torch.graph import messages as msgs
+from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
 from solve_keyframe_pose_graph_tpu_torch.graph.native import make_store
 from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
     PoseGraphServer,
 )
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 
 from test_torch_threads import one_torch_thread  # noqa: F401
 

@@ -71,3 +71,38 @@ def test_gj_inv_wrapper_rejects_what_the_kernel_does_not_take(rng):
     assert tsi.gj_inv.launches == before
     with pytest.raises(ValueError, match="does not divide"):
         tsi.block_gj_inv(A[..., :28, :28])
+
+
+def test_gj_inv_reads_a_strided_batch_in_place(rng):
+    """K2 takes a batch of contiguous (d, d) matrices one uniform stride
+    apart, such as the cyclic reduction's odd blocks A[1::2]; its CPU path
+    gives what the contiguous call gives, and the output is contiguous."""
+    A = torch.from_numpy(spd_blocks(rng, 16, 30, np.float64))
+    odd = A[1::2]
+    assert not odd.is_contiguous()
+    assert tsi.batch_stride(odd) == 2 * 30 * 30
+    assert tsi.batch_stride(A) == 30 * 30
+    assert tsi.batch_stride(A[3]) == 30 * 30
+    got = tsi.gj_inv(odd)
+    assert got.is_contiguous() and got.shape == odd.shape
+    assert torch.equal(got, tsi.gj_inv(odd.contiguous()))
+    _close(got.numpy(), np.linalg.inv(odd.numpy()), np.float64)
+    # leading dims that merge into one uniform stride are taken too
+    A4 = A.reshape(4, 4, 30, 30)[:, ::2]
+    assert tsi.batch_stride(A4) == 2 * 30 * 30
+    assert torch.equal(tsi.gj_inv(A4), tsi.gj_inv(A4.contiguous()))
+
+
+@pytest.mark.parametrize("layout", ["transposed", "row_strided",
+                                    "uneven_leading"])
+def test_gj_inv_rejects_layouts_the_kernel_does_not_take(rng, layout):
+    A = torch.from_numpy(spd_blocks(rng, 12, 12, np.float64))
+    bad = {"transposed": A.transpose(-1, -2),
+           "row_strided": torch.from_numpy(
+               spd_blocks(rng, 12, 24, np.float64))[:, ::2, ::2],
+           "uneven_leading": A.reshape(3, 4, 12, 12)[:, 1:3]}[layout]
+    assert tsi.batch_stride(bad) is None
+    with pytest.raises(ValueError, match="uniform"):
+        tsi.gj_inv(bad)
+    # best_inv copies such a batch for the kernel; its CPU path is plain
+    _close(tsi.best_inv(bad).numpy(), np.linalg.inv(bad.numpy()), np.float64)

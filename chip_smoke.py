@@ -41,11 +41,27 @@ Phases, one printed line each (or a few):
      `replay --load-dir` restoring the checkpoint;
  10. serve: the port server on a Unix socket in a thread, on the bounded
      native store; a client streams 2,000 nodes, their loop edges and a
-     kidnap/unkidnap pair, asks every query kind and shuts it down.
+     kidnap/unkidnap pair, asks every query kind and shuts it down;
+ 11. two-grid: lm_solve with the multiplicative band*coarse preconditioner
+     on the phase-5 bench problem, fp32, within 2% of the fp64 reference
+     chi^2, with the median time per solve;
+ 12. four-dof: lm_solve with the 4-DOF residual family at the product
+     defaults on the same problem, fp32: the final chi^2 at most 1e-9 of
+     the initial, the share of switches below 0.5, the median time per
+     solve; a 300-node 4-DOF graph in fp64 on the card and on the CPU,
+     which must agree to 1e-9 in chi^2; and the bench problem through
+     escalate_resolve with escalation forced under "auto", which for this
+     family must take the device rung (K1 and K2 in fp64);
+ 13. incremental: phase 9's stream through the CLI's `replay --config`
+     with stream.incremental_build on and off: the same final poses and
+     switches, bit for bit, delta builds only when on, and the median
+     problem-build time per trigger both ways.
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
-no result line. Each path of phases 5 and 7-10 is run with the kernels' launch counts set to
-0 just before it and read just after (phase 8's exact-step self-reference
-runs outside them). Then a JSON line with each kernel's
+no result line. Each path of phases 5 and 7-13 is run with the kernels'
+launch counts set to 0 just before it and read just after (phase 8's
+exact-step self-reference and phase 12's CPU solve run outside them); where
+the code fixes a path's launches by its LM and CG counts, they must match
+(expected_launches, solve_launches). Then a JSON line with each kernel's
 numbers (launches summed over those paths, and by path), the card line
 again, and last {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero before that last line; there is no CPU fallback.
@@ -55,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -70,6 +87,7 @@ import numpy as np
 import torch
 
 from solve_keyframe_pose_graph_tpu_torch import certify, cli
+from solve_keyframe_pose_graph_tpu_torch.config import Config
 from solve_keyframe_pose_graph_tpu_torch.graph import (
     messages, native, store as store_mod, synthetic,
 )
@@ -402,6 +420,21 @@ def circle_problem(n, n_loops, n_cap, e_cap, dtype, device, outliers=0.2,
         dtype=dtype, device=device)
 
 
+def timed_solves(fn, reps: int = 3) -> list:
+    """CUDA-event times in ms of `reps` calls of fn (a whole solve, which
+    ends in a host read, so the host's enqueue is part of what it costs)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
 def phase_solve(dev, card: str) -> dict:
     t0 = time.perf_counter()
     prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
@@ -437,15 +470,7 @@ def phase_solve(dev, card: str) -> dict:
                              f"{tuple(res.t.shape)}")
 
     lm_solve(prob, **PRODUCT)                    # second warm-up
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        lm_solve(prob, **PRODUCT)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times = timed_solves(lambda: lm_solve(prob, **PRODUCT), reps=5)
     say("solve", chi2=chi2, chi2_fp64_eval=chi2_64, chi2_ref=CHI2_REF,
         initial_cost=float(res.initial_cost),
         lm_iterations=int(res.iterations),
@@ -565,6 +590,119 @@ def expected_launches(rows: list, cg_cap: int = 45,
             continue
         k2 += per_factor * r["lm_iterations"]
     return {"band_matvec": k1, "gj_inv": k2}
+
+
+def solve_launches(res, cg_cap: int, precond_matvecs: int = 0,
+                   per_factor: int = 3) -> dict:
+    """K1 and K2 launches of one lm_solve with LM count res.iterations:
+    per LM iteration, one K1 per CG iteration of the fixed cap plus
+    `precond_matvecs` in each of the cap + 1 preconditioner applications
+    (2 for band*coarse's two-grid), and `per_factor` K2 (bcr_levels + 1)."""
+    it = int(res.iterations)
+    return {"band_matvec": it * (cg_cap + precond_matvecs * (cg_cap + 1)),
+            "gj_inv": it * per_factor}
+
+
+def check_launches(path: str, want: dict) -> None:
+    got = PATH_LAUNCHES[path]
+    if got != want or not all(want.values()):
+        raise AssertionError(f"{path}: launched {got}, its LM and CG counts "
+                             f"imply {want}")
+
+
+def phase_two_grid(dev, card: str) -> None:
+    """The multiplicative two-grid (band*coarse) on the bench problem."""
+    prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
+    kw = dict(PRODUCT, preconditioner="band*coarse")
+    with counted("two-grid"):
+        res = lm_solve(prob, **kw)
+        chi2 = float(res.final_cost)
+    check_launches("two-grid", solve_launches(res, kw["max_cg_iterations"],
+                                              precond_matvecs=2))
+    if not within_quality(chi2, CHI2_REF):
+        raise AssertionError(f"band*coarse chi^2 {chi2} not within "
+                             f"{QUALITY:.0%} of {CHI2_REF}")
+    if not all(bool(torch.isfinite(v).all()) for v in (res.q, res.t,
+                                                        res.switch)):
+        raise AssertionError("band*coarse: non-finite solution")
+    times = timed_solves(lambda: float(lm_solve(prob, **kw).final_cost))
+    say("two-grid", chi2=chi2, chi2_ref=CHI2_REF,
+        gap=f"{chi2 / CHI2_REF - 1:+.4%}",
+        initial_cost=float(res.initial_cost),
+        lm_iterations=int(res.iterations),
+        accepted=int(res.successful_steps),
+        cg_iterations=int(res.total_cg_iterations),
+        launches=json.dumps(PATH_LAUNCHES["two-grid"],
+                            separators=(",", ":")),
+        median_ms_per_solve=float(np.median(times)),
+        all_ms=json.dumps([round(t, 3) for t in times]), card=repr(card))
+
+
+def phase_four_dof(dev, card: str) -> None:
+    """The 4-DOF residual family: the bench problem at the product
+    defaults, a small fp64 graph on the card against the CPU, and the
+    family's escalation, which only the device rung serves."""
+    prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
+    kw = dict(PRODUCT, residual_mode="4dof")
+    with counted("four-dof"):
+        res = lm_solve(prob, **kw)
+        chi2 = float(res.final_cost)
+    check_launches("four-dof", solve_launches(res, kw["max_cg_iterations"]))
+    chi2_0 = float(res.initial_cost)
+    if not (math.isfinite(chi2) and chi2 <= 1e-9 * chi2_0):
+        raise AssertionError(f"4-DOF chi^2 {chi2} is not <= 1e-9 x the "
+                             f"initial {chi2_0}")
+    live = prob.loop_mask > 0.5
+    off = float((res.switch[live] < 0.5).double().mean())
+    if not all(bool(torch.isfinite(v).all()) for v in (res.q, res.t,
+                                                        res.switch)):
+        raise AssertionError("4-DOF: non-finite solution")
+    times = timed_solves(lambda: float(lm_solve(prob, **kw).final_cost))
+    say("four-dof", initial_chi2=chi2_0, chi2=chi2,
+        final_over_initial=chi2 / chi2_0, switches_below_half=off,
+        lm_iterations=int(res.iterations),
+        accepted=int(res.successful_steps),
+        cg_iterations=int(res.total_cg_iterations),
+        launches=json.dumps(PATH_LAUNCHES["four-dof"],
+                            separators=(",", ":")),
+        median_ms_per_solve=float(np.median(times)),
+        all_ms=json.dumps([round(t, 3) for t in times]), card=repr(card))
+
+    # fp64 on the card (both kernels in fp64) and on the CPU: must agree
+    g, c = (lm_solve(circle_problem(300, 40, 512, 64, np.float64, d,
+                                    outliers=0.3, prior_w=2.0), **kw)
+            for d in (dev, "cpu"))
+    rel = abs(float(g.final_cost) - float(c.final_cost)) / float(c.final_cost)
+    counts_equal = all(int(getattr(g, k)) == int(getattr(c, k))
+                       for k in ("iterations", "successful_steps",
+                                 "total_cg_iterations"))
+    if not (counts_equal and rel <= 1e-9):
+        raise AssertionError(f"4-DOF fp64: cuda vs cpu chi^2 rel diff {rel}, "
+                             f"counts equal {counts_equal}")
+    say("four-dof-small", cuda_chi2=float(g.final_cost),
+        cpu_chi2=float(c.final_cost), rel_diff=rel,
+        initial_chi2=float(c.initial_cost),
+        cg_iterations=int(g.total_cg_iterations))
+
+    # escalation: the host rung serves the 6-DOF family only
+    with counted("escalation-4dof"):
+        t0 = time.perf_counter()
+        esc, rung, _ = lm_ops.escalate_resolve(prob, kw, 0,
+                                               fp64_backend="auto")
+        chi2_esc = float(esc.final_cost)
+        wall = time.perf_counter() - t0
+    if rung != "fp64" or esc.q.dtype != torch.float64:
+        raise AssertionError(f"4-DOF escalation took rung {rung!r} "
+                             f"({esc.q.dtype}), expected the device rung")
+    check_launches("escalation-4dof", solve_launches(esc, 100))
+    if not (math.isfinite(chi2_esc) and chi2_esc <= 1e-9 * chi2_0):
+        raise AssertionError(f"4-DOF device rung chi^2 {chi2_esc} vs the "
+                             f"initial {chi2_0}")
+    say("four-dof-escalation", rung=rung, chi2=chi2_esc,
+        wall_s=round(wall, 4), lm_iterations=int(esc.iterations),
+        cg_iterations=int(esc.total_cg_iterations),
+        launches=json.dumps(PATH_LAUNCHES["escalation-4dof"],
+                            separators=(",", ":")), card=repr(card))
 
 
 def phase_cli_solve(tmp: str, card: str) -> None:
@@ -839,8 +977,69 @@ def phase_serve(dev, tmp: str, card: str, n: int = 2000) -> None:
         card=repr(card))
 
 
+def phase_incremental(tmp: str, card: str) -> None:
+    """Phase 9's stream replayed with the incremental problem build on and
+    off, in fp32 without the escalation ladder (phases 7-9 drive it): a
+    background rung's timing decides which polls of the replay find the
+    engine free, and an inline rung's row holds the rung's LM counts, not
+    the fp32 solve's, so neither gives two runs that can be compared bit
+    for bit with launch counts fixed by their rows."""
+    stream = os.path.join(tmp, "stream.json")
+    info = make_stream(stream)
+    every = str(info["events"] // 10)
+    runs = {}
+    for on in (True, False):
+        mode = "on" if on else "off"
+        cfg = Config()
+        cfg = dataclasses.replace(
+            cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False),
+            stream=dataclasses.replace(cfg.stream, incremental_build=on))
+        cfg_path = os.path.join(tmp, f"incremental_{mode}.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        out = os.path.join(tmp, f"incremental_{mode}.json.out")
+        ckpt = os.path.join(tmp, f"incremental_{mode}")
+        path = f"incremental-{mode}"
+        with counted(path):
+            run_cli(["replay", "--input", stream, "--output", out,
+                     "--config", cfg_path, "--trigger-every", every,
+                     "--save-dir", ckpt, "--device", "cuda"])
+        sol = json.load(open(out))
+        rows = [r for r in sol["solve_stats"] if "trigger_wall_ms" in r]
+        check_launches(path, expected_launches(sol["solve_stats"]))
+        saved = json.load(open(os.path.join(ckpt, "solved_posegraph.json")))
+        runs[mode] = dict(rows=rows, switches=sol["switches"],
+                          poses=[nd["w_T_c"]["data"]
+                                 for nd in saved["SolvedPoseGraph"]])
+        build_ms = [r["problem_build_ms"] for r in rows]
+        say("incremental", mode=mode, triggers=len(rows),
+            full_builds=rows[-1]["full_builds"],
+            delta_builds=rows[-1]["delta_builds"],
+            median_problem_build_ms=float(np.median(build_ms)),
+            all_problem_build_ms=json.dumps([round(v, 3) for v in build_ms]),
+            median_trigger_wall_ms=float(np.median(
+                [r["trigger_wall_ms"] for r in rows])),
+            final_chi2=rows[-1]["final_cost"],
+            launches=json.dumps(PATH_LAUNCHES[path], separators=(",", ":")),
+            card=repr(card))
+    on, off = runs["on"], runs["off"]
+    if not (on["rows"][-1]["delta_builds"] > 0
+            and off["rows"][-1]["delta_builds"] == 0):
+        raise AssertionError(
+            f"delta builds: on {on['rows'][-1]['delta_builds']}, off "
+            f"{off['rows'][-1]['delta_builds']}")
+    same = (on["poses"] == off["poses"] and on["switches"] == off["switches"]
+            and [r["final_cost"] for r in on["rows"]]
+            == [r["final_cost"] for r in off["rows"]])
+    if not same:
+        raise AssertionError("the incremental replay differs from the "
+                             "full-build replay")
+    say("incremental", bitwise_equal_poses_and_switches=True,
+        nodes=len(on["poses"]), switches=len(on["switches"]))
+
+
 PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
-          "replay", "serve")
+          "replay", "serve", "two-grid", "four-dof", "incremental")
 
 
 def main(argv=None) -> None:
@@ -878,6 +1077,12 @@ def main(argv=None) -> None:
             phase_replay(tmp, card)
         if run("serve"):
             phase_serve(dev, tmp, card)
+        if run("two-grid"):
+            phase_two_grid(dev, card)
+        if run("four-dof"):
+            phase_four_dof(dev, card)
+        if run("incremental"):
+            phase_incremental(tmp, card)
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return

@@ -87,10 +87,20 @@ def _build_pipeline(store, cfg: Config, device):
 
 
 def _config_from_args(args) -> Config:
+    """The run's Config; exits non-zero for one the port cannot run (a mesh
+    of several devices)."""
+    from solve_keyframe_pose_graph_tpu_torch.solver.engine import (
+        refuse_multi_device,
+    )
+
     cfg = Config()
     if getattr(args, "config", None):
         with open(args.config) as f:
             cfg = Config.from_json(f.read())
+    try:
+        refuse_multi_device(cfg)
+    except ValueError as e:
+        raise SystemExit(f"kpg-solve-torch: {e}") from None
     if getattr(args, "max_iters", None):
         import dataclasses
         cfg = dataclasses.replace(

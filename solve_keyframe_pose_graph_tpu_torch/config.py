@@ -10,8 +10,9 @@ trigger poll at :1257, 30k-node capacity at :17-25, switch init 0.99 at
 reproducible from its config.
 
 Fields that only the JAX package reads (band_impl, loop_impl,
-stream.incremental_build, io.compile_cache_dir, mesh) are kept so that a
-config file loads in both; the port ignores them.
+io.compile_cache_dir, mesh.axis_name) are kept so that a config file loads
+in both; the port ignores them. The port solves on one device and refuses a
+config with mesh.n_devices > 1 (solver/engine.refuse_multi_device).
 """
 
 from __future__ import annotations

@@ -9,6 +9,9 @@ coarse level. Combined additively with the band smoother:
 
     M^-1 = B^-1 + P H_c^-1 P^T          ("band+coarse")
 
+or multiplicatively, as a symmetrized two-grid cycle ("band*coarse",
+two_grid_apply).
+
 `auto_coarse_group` and `median_loop_offset` are copies of the reference's
 numpy rules (its module imports jax).
 """
@@ -140,3 +143,15 @@ def coarse_apply(Hc_inv, free_mask, r_n, group: int):
     y = (Hc_inv @ rc).reshape(M, 1, 6)
     x = y.expand(M, c, 6).reshape(M * c, 6)[:Nc]
     return x.T * free_mask[None, :]
+
+
+def two_grid_apply(band, coarse, matvec, r):
+    """The symmetrized multiplicative two-grid ("band*coarse"): a coarse
+    correction, a band smoothing step and a second coarse correction,
+        x1 = C r;  x2 = x1 + B (r - A x1);  x = x2 + C (r - A x2),
+    with A the reduced matvec. Symmetric whenever B and C are. Two matvecs
+    per application; their arguments and the result are contiguous, since
+    the band part of a matvec is kernel K1, which takes contiguous input."""
+    x1 = coarse(r).contiguous()
+    x2 = (x1 + band(r - matvec(x1))).contiguous()
+    return (x2 + coarse(r - matvec(x2))).contiguous()

@@ -1,5 +1,6 @@
-"""Gauss-Newton normal-equation blocks, main-path subset (counterpart of
-solve_keyframe_pose_graph_tpu/ops/gn.py).
+"""Gauss-Newton normal-equation blocks (counterpart of
+solve_keyframe_pose_graph_tpu/ops/gn.py): the 6-DOF assembly of the product
+path, the 4-DOF assembly, the switch elimination and the reduced matvec.
 
     H = [ H_nn  H_ns ]   H_nn = D (block diag, 6x6) + band B_f (odometry,
         [ H_ns' H_ss ]          offsets 1..F) + sparse loop blocks A_ba;
@@ -54,6 +55,11 @@ def scatter_loop_rows(problem: Problem, vb, va):
 def shift_down(x, f):
     """out[u] = x[u-f] along dim 0; first f slots zero."""
     return torch.cat([x.new_zeros((f,) + x.shape[1:]), x[:-f]], dim=0)
+
+
+def shift_up(x, f):
+    """out[u] = x[u+f] along dim 0; last f slots zero."""
+    return torch.cat([x[f:], x.new_zeros((f,) + x.shape[1:])], dim=0)
 
 
 def shift_lanes_down(x, f):
@@ -198,6 +204,110 @@ def assemble_t(problem: Problem, q, t, s, use_switch: bool = True
 
     return GNBlocksT(cost=cost, D=D, B=B_t, Aba=Aba, cb=cb, ca=ca, ds=ds,
                      g_n=g_n, g_s=g_s)
+
+
+def assemble_4dof_t(problem: Problem, q, t, s) -> GNBlocksT:
+    """4-DOF (yaw-weighted Euler) assembly, the reference's alternative
+    residual family: loop edges always carry switches, and the Jacobians
+    come from autodiff (res.four_dof_*_jac; this mode is not hot). Returns
+    the same entry-major blocks as assemble_t, so everything downstream runs
+    unchanged. The per-node loop sums go through scatter_loop_rows, in a
+    fixed order, as in assemble_t."""
+    F, Nc, Ec = problem.fanout, problem.n_cap, problem.e_cap
+    dt, dev = problem.dtype, problem.device
+
+    # ---------------- odometry band ----------------
+    q1, t1, q2, t2 = _odo_inputs(problem, q, t)
+    w = (problem.odo_w * problem.odo_mask).reshape(-1)
+    r_o, J1, J2 = res.four_dof_residual_jac(
+        q1.reshape(-1, 4), t1.reshape(-1, 3), q2.reshape(-1, 4),
+        t2.reshape(-1, 3), problem.odo_q.reshape(-1, 4),
+        problem.odo_t.reshape(-1, 3), w)
+    r_o = r_o.reshape(F, Nc, 6)
+    J1 = J1.reshape(F, Nc, 6, 6)
+    J2 = J2.reshape(F, Nc, 6, 6)
+    cost = 0.5 * torch.sum(r_o * r_o)
+    A11 = torch.einsum("fuki,fukj->fuij", J1, J1)
+    A22 = torch.einsum("fuki,fukj->fuij", J2, J2)
+    B = torch.einsum("fuki,fukj->fuij", J1, J2)
+    D = torch.sum(A11, dim=0)                              # (Nc, 6, 6)
+    g_n = torch.sum(torch.einsum("fuki,fuk->fui", J1, r_o), dim=0)
+    for f in range(F):
+        D = D + shift_up(A22[f], f + 1)
+        g_n = g_n + shift_up(torch.einsum("uki,uk->ui", J2[f], r_o[f]),
+                             f + 1)
+
+    # ---------------- loop edges ----------------
+    qb, tb = q[problem.loop_b], t[problem.loop_b]
+    qa, ta = q[problem.loop_a], t[problem.loop_a]
+    r_l, L1, L2, Ls = res.four_dof_switch_residual_jac(
+        qb, tb, qa, ta, s, problem.loop_q, problem.loop_t, problem.loop_w)
+    m = problem.loop_mask
+    r_l = r_l * m[:, None]
+    L1 = L1 * m[:, None, None]
+    L2 = L2 * m[:, None, None]
+    Ls = Ls * m[:, None]
+    cost = cost + 0.5 * torch.sum(r_l * r_l)
+    D = D + scatter_loop_rows(
+        problem, torch.einsum("eki,ekj->eij", L1, L1).reshape(Ec, 36),
+        torch.einsum("eki,ekj->eij", L2, L2).reshape(Ec, 36),
+    ).reshape(Nc, 6, 6)
+    g_n = g_n + scatter_loop_rows(problem,
+                                  torch.einsum("eki,ek->ei", L1, r_l),
+                                  torch.einsum("eki,ek->ei", L2, r_l))
+    Aba = torch.einsum("eki,ekj->eij", L1, L2)
+    cb = torch.einsum("eki,ek->ei", L1, Ls)
+    ca = torch.einsum("eki,ek->ei", L2, Ls)
+    ds = torch.where(m < 0.5, 1.0, torch.sum(Ls * Ls, dim=-1))
+    g_s = torch.einsum("ek,ek->e", Ls, r_l)
+
+    # ---------------- node priors ----------------
+    qp, tp = q[problem.prior_idx], t[problem.prior_idx]
+    r_p, Jp = res.node_prior_residual_jac(
+        qp, tp, problem.prior_q, problem.prior_t,
+        problem.prior_w * problem.prior_mask)
+    pm = problem.prior_mask
+    r_p = r_p * pm[:, None]
+    Jp = Jp * pm[:, None, None]
+    cost = cost + 0.5 * torch.sum(r_p * r_p)
+    # live priors sit on distinct nodes and masked ones add exact zeros
+    D = D.index_add(0, problem.prior_idx,
+                    torch.einsum("pki,pkj->pij", Jp, Jp))
+    g_n = g_n.index_add(0, problem.prior_idx,
+                        torch.einsum("pki,pk->pi", Jp, r_p))
+
+    # ---------------- inert padding ----------------
+    inactive = (problem.node_mask < 0.5)[:, None, None]
+    D = torch.where(inactive, torch.eye(6, dtype=dt, device=dev), D)
+    g_n = g_n * problem.node_mask[:, None]
+
+    def entry_major(X):                       # (n, 6, 6) -> (36, n)
+        return X.reshape(X.shape[0], 36).T.contiguous()
+
+    return GNBlocksT(
+        cost=cost, D=entry_major(D),
+        B=torch.stack([entry_major(B[f]) for f in range(F)]),
+        Aba=entry_major(Aba), cb=cb.T.contiguous(), ca=ca.T.contiguous(),
+        ds=ds, g_n=g_n.T.contiguous(), g_s=g_s)
+
+
+def evaluate_cost_4dof(problem: Problem, q, t, s):
+    """0.5 * ||r||^2 of the 4-DOF family (no Jacobians)."""
+    q1, t1, q2, t2 = _odo_inputs(problem, q, t)
+    w = problem.odo_w * problem.odo_mask
+    r_odo = res.four_dof_residual(q1, t1, q2, t2, problem.odo_q,
+                                  problem.odo_t, w)
+    qb, tb = q[problem.loop_b], t[problem.loop_b]
+    qa, ta = q[problem.loop_a], t[problem.loop_a]
+    r_loop = res.four_dof_switch_residual(
+        qb, tb, qa, ta, s, problem.loop_q, problem.loop_t, problem.loop_w
+    ) * problem.loop_mask[:, None]
+    qp, tp = q[problem.prior_idx], t[problem.prior_idx]
+    r_pri = res.node_prior_residual(
+        qp, tp, problem.prior_q, problem.prior_t,
+        problem.prior_w * problem.prior_mask)
+    return 0.5 * (torch.sum(r_odo * r_odo) + torch.sum(r_loop * r_loop)
+                  + torch.sum(r_pri * r_pri))
 
 
 @dataclasses.dataclass

@@ -10,8 +10,11 @@ max_iterations counting accepted and rejected steps, the function and
 parameter tolerances, a 10x tighter CG forcing on the retry after a
 rejection, and speculative assembly at the candidate point. The inner solve
 is PCG (ops/pcg.py) on the switch-eliminated node system (ops/gn.py) with
-the band BCR (ops/band.py), band+coarse (ops/coarse.py), block-jacobi or
-identity preconditioner.
+the band BCR (ops/band.py), the additive band+coarse or the multiplicative
+band*coarse two-grid (ops/coarse.py), block-jacobi or identity
+preconditioner. The residual family is 6-DOF (gn.assemble_t, the product
+path) or 4-DOF (gn.assemble_4dof_t, autodiff Jacobians, loop edges always
+switched).
 
 On a CUDA problem every reduced matvec's band part runs kernel K1 and every
 BCR inverse kernel K2: the wrappers dispatch on the tensors' device, which
@@ -38,9 +41,10 @@ so a streaming engine's trigger solves wait at most one iteration.
 
 Not ported: the AOT executable cache, outer_unroll, freeze_preconditioner,
 the mixed-precision rung and lm_solve_chunked (they exist for the TPU's
-emulated fp64 and its ~100 s dispatch limit), the 4-DOF family, the
-band*coarse two-grid, and the TPU-only loop_impl / band_impl / tile_k /
-matvec_impl variants.
+emulated fp64 and its ~100 s dispatch limit), and the TPU-only loop_impl /
+band_impl / tile_k / matvec_impl variants. The host rung serves the 6-DOF
+switched family only, so a 4-DOF escalation under "auto" takes the device
+rung.
 """
 
 from __future__ import annotations
@@ -68,7 +72,9 @@ MAX_LM_DIAGONAL = 1e32
 MIN_RELATIVE_DECREASE = 1e-3
 MAX_RADIUS = 1e16
 MIN_RADIUS = 1e-32
-PRECONDITIONERS = ("band", "band+coarse", "jacobi", "identity")
+PRECONDITIONERS = ("band", "band+coarse", "band*coarse", "jacobi",
+                   "identity")
+RESIDUAL_MODES = ("6dof", "4dof")
 FP64_BACKENDS = ("auto", "cpu", "tpu")
 
 log = logging.getLogger(__name__)
@@ -137,6 +143,7 @@ def _lm_setup(
     parameter_tolerance: float,
     renormalize: bool,
     preconditioner: str,
+    residual_mode: str,
     use_switch: bool,
     bcr_levels,
     coarse_group,
@@ -145,8 +152,11 @@ def _lm_setup(
 ):
     """(init_state, body) of the LM loop."""
     if preconditioner not in PRECONDITIONERS:
-        raise ValueError(f"preconditioner={preconditioner!r} is not ported; "
-                         f"use one of {PRECONDITIONERS}")
+        raise ValueError(f"preconditioner={preconditioner!r}; use one of "
+                         f"{PRECONDITIONERS}")
+    if residual_mode not in RESIDUAL_MODES:
+        raise ValueError(f"residual_mode={residual_mode!r}; use one of "
+                         f"{RESIDUAL_MODES}")
     if coarse_group is None:
         coarse_group = coarse_ops.auto_coarse_group(problem.n_cap)
     dt, dev = problem.dtype, problem.device
@@ -160,11 +170,14 @@ def _lm_setup(
     tol_tight = scalar(cg_tolerance * 0.1)
 
     def assemble(q, t, s):
+        if residual_mode == "4dof":           # use_switch does not apply
+            return gn_ops.assemble_4dof_t(problem, q, t, s)
         return gn_ops.assemble_t(problem, q, t, s, use_switch=use_switch)
 
-    def make_precond(red: gn_ops.ReducedSystemT):
+    def make_precond(red: gn_ops.ReducedSystemT, mv):
         """Preconditioner on (6,Nc) vectors, returning contiguous tensors
-        (the CG direction feeds kernel K1, which takes contiguous input)."""
+        (the CG direction feeds kernel K1, which takes contiguous input).
+        mv, the reduced matvec, is used by the band*coarse two-grid."""
         if preconditioner == "identity":
             return lambda r: r
         if preconditioner == "jacobi":
@@ -185,8 +198,14 @@ def _lm_setup(
         if preconditioner == "band":
             return lambda r: band(r).contiguous()
         Hc_inv = coarse_ops.build_coarse_inverse(red, problem, coarse_group)
-        return lambda r: (band(r) + coarse_ops.coarse_apply(
-            Hc_inv, problem.free_mask, r, coarse_group)).contiguous()
+
+        def coarse(r):
+            return coarse_ops.coarse_apply(Hc_inv, problem.free_mask, r,
+                                           coarse_group)
+
+        if preconditioner == "band+coarse":
+            return lambda r: (band(r) + coarse(r)).contiguous()
+        return lambda r: coarse_ops.two_grid_apply(band, coarse, mv, r)
 
     def reduce(blocks: gn_ops.GNBlocksT, radius):
         diag_n = blocks.D[list(gn_ops.DIAG36)]                 # (6, Nc)
@@ -218,7 +237,7 @@ def _lm_setup(
         tol_k = torch.where(state.k < cg_warm_iters, tol_warm, tol_base)
         tol_k = torch.where(state.tighten, tol_tight, tol_k)
         sol = pcg_ops.pcg_nodes(
-            mv, make_precond(red), red.rhs_n,
+            mv, make_precond(red, mv), red.rhs_n,
             max_iterations=max_cg_iterations, r_tolerance=tol_k,
             q_tolerance=cg_q_tolerance)
         dxh_n = sol.x                                          # (6, Nc)
@@ -307,10 +326,11 @@ def lm_solve(
     function_tolerance: float = 1e-6,
     parameter_tolerance: float = 1e-8,
     renormalize: bool = True,
-    preconditioner: str = "band",   # "band" | "band+coarse" | "jacobi" |
-                                    # "identity"
-    residual_mode: str = "6dof",    # the 4-DOF family is not ported
+    preconditioner: str = "band",   # "band" | "band+coarse" |
+                                    # "band*coarse" | "jacobi" | "identity"
+    residual_mode: str = "6dof",    # "6dof" | "4dof"
     use_switch: bool = True,        # False: plain loop edges, no switches
+                                    # (6dof only; 4dof loops are switched)
     bcr_levels=3,                   # truncate the band cyclic reduction
     coarse_group: int | None = None,  # None = coarse.auto_coarse_group
     cg_warm_iters: int = 0,         # first K LM iterations use a
@@ -320,8 +340,6 @@ def lm_solve(
                                     # iteration (to its host sync)
 ) -> LMResult:
     """One full LM solve of `problem` on its own device and dtype."""
-    if residual_mode != "6dof":
-        raise ValueError(f"residual_mode={residual_mode!r} is not ported")
     if precision != "native":
         raise ValueError(f"precision={precision!r} is not ported")
     # BCR and the coarse solve rely on full-fp32 batched products
@@ -337,8 +355,9 @@ def lm_solve(
             function_tolerance=function_tolerance,
             parameter_tolerance=parameter_tolerance,
             renormalize=renormalize, preconditioner=preconditioner,
-            use_switch=use_switch, bcr_levels=bcr_levels,
-            coarse_group=coarse_group, cg_warm_iters=cg_warm_iters,
+            residual_mode=residual_mode, use_switch=use_switch,
+            bcr_levels=bcr_levels, coarse_group=coarse_group,
+            cg_warm_iters=cg_warm_iters,
             cg_warm_mult=cg_warm_mult)
         done = bool(state.done)
     cost0 = state.cost

@@ -1,17 +1,23 @@
-"""Residuals and closed-form normal-equation block products for the 6-DOF
-family (counterpart of solve_keyframe_pose_graph_tpu/ops/residuals.py:42-80
-and :376-575).
+"""Residuals and their normal-equation block products (counterpart of
+solve_keyframe_pose_graph_tpu/ops/residuals.py).
 
-The algebra, the reference quirks (the switch residual multiplies every row
-by s and ignores the edge weight) and the entry-major layout are the
-reference's: blocks come back as (36,)+batch stacks of row-major 6x6 entries,
-gradients as (6,)+batch, so the node axis stays innermost. The 4-DOF family
-is not ported yet.
+The 6-DOF family, the product path, has closed-form block products. The
+algebra, the reference quirks (the switch residual multiplies every row by s
+and ignores the edge weight) and the entry-major layout are the reference's:
+blocks come back as (36,)+batch stacks of row-major 6x6 entries, gradients
+as (6,)+batch, so the node axis stays innermost.
+
+The 4-DOF family (yaw-weighted Euler rows, CeresResidues.h:252-422) is not
+hot, so, as in the reference, its Jacobians come from forward-mode autodiff:
+torch.func.vmap over the batch of torch.func.jacfwd over the 12-column
+tangent [dtheta1, dt1, dtheta2, dt2] (13 with the switch). The prior's
+Jacobian, which the 4-DOF assembly also uses, is closed-form.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import jacfwd, vmap
 
 from solve_keyframe_pose_graph_tpu_torch.ops import se3
 
@@ -50,6 +56,95 @@ def node_prior_residual(q, t, prior_q, prior_t, weight):
     dq, dt = se3.pose_relative(prior_q, prior_t, q, t)
     r = torch.cat([dt, 2.0 * dq[..., :3]], dim=-1)
     return r * weight[..., None]
+
+
+def _four_dof_rows(q1, t1, q2, t2, obs_q, obs_t):
+    """[delta_t; 4 yaw, 10 pitch, 10 roll (degrees)] of the relative-pose
+    error, unweighted (CeresResidues.h:293-307)."""
+    q12, p12 = se3.pose_relative(q1, t1, q2, t2)
+    q12c = se3.quat_conj(q12)
+    delta_q = se3.quat_mul(q12c, obs_q)
+    delta_t = se3.quat_rotate(q12c, obs_t - p12)
+    ypr = se3.rot_to_ypr_deg(se3.quat_to_rot(delta_q))
+    # scaled as slices, not as 0-dim entries: under torch.func.jacfwd a
+    # 0-dim tensor times a Python float gets a float64 tangent whatever its
+    # own dtype
+    rot_rows = torch.cat([4.0 * ypr[..., :1], 10.0 * ypr[..., 1:]], dim=-1)
+    return torch.cat([delta_t, rot_rows], dim=-1)
+
+
+def four_dof_residual(q1, t1, q2, t2, obs_q, obs_t, weight):
+    """FourDOFError: 6 rows, all scaled by weight."""
+    return _four_dof_rows(q1, t1, q2, t2, obs_q, obs_t) * weight[..., None]
+
+
+def four_dof_switch_residual(q1, t1, q2, t2, s, obs_q, obs_t, weight):
+    """FourDOFErrorWithSwitchingConstraints: the 6 rows of FourDOFError and
+    (1 - s); ALL rows multiplied by s, the weight ignored (the same quirks
+    as the 6-DOF switch residual)."""
+    del weight
+    s = s[..., None]                # not 0-dim under vmap (see above)
+    r = torch.cat([_four_dof_rows(q1, t1, q2, t2, obs_q, obs_t), 1.0 - s],
+                  dim=-1)
+    return r * s
+
+
+# ---------------------------------------------------------------------------
+# autodiff Jacobians of the 4-DOF family (tangent at delta = 0)
+# ---------------------------------------------------------------------------
+
+
+def _apply_tangent(q, t, dth, dt):
+    return se3.quat_box_plus(q, dth), t + dt
+
+
+def _binary_jac(residual_fn):
+    """Batched (r, J1, J2) of a two-node residual; J1, J2 (batch, rows, 6)
+    with respect to [dtheta, dt] of node 1 and node 2."""
+
+    def single(q1, t1, q2, t2, obs_q, obs_t, w):
+        def f(d):
+            a1, b1 = _apply_tangent(q1, t1, d[0:3], d[3:6])
+            a2, b2 = _apply_tangent(q2, t2, d[6:9], d[9:12])
+            r = residual_fn(a1, b1, a2, b2, obs_q, obs_t, w)
+            return r, r
+
+        J, r = jacfwd(f, has_aux=True)(q1.new_zeros(12))
+        return r, J
+
+    batched = vmap(single)
+
+    def evaluate(q1, t1, q2, t2, obs_q, obs_t, w):
+        r, J = batched(q1, t1, q2, t2, obs_q, obs_t, w)
+        return r, J[..., 0:6], J[..., 6:12]
+
+    return evaluate
+
+
+def _binary_switch_jac(residual_fn):
+    """Like _binary_jac with the switch scalar: (r, J1, J2, Js)."""
+
+    def single(q1, t1, q2, t2, s, obs_q, obs_t, w):
+        def f(d):
+            a1, b1 = _apply_tangent(q1, t1, d[0:3], d[3:6])
+            a2, b2 = _apply_tangent(q2, t2, d[6:9], d[9:12])
+            r = residual_fn(a1, b1, a2, b2, s + d[12], obs_q, obs_t, w)
+            return r, r
+
+        J, r = jacfwd(f, has_aux=True)(q1.new_zeros(13))
+        return r, J
+
+    batched = vmap(single)
+
+    def evaluate(q1, t1, q2, t2, s, obs_q, obs_t, w):
+        r, J = batched(q1, t1, q2, t2, s, obs_q, obs_t, w)
+        return r, J[..., 0:6], J[..., 6:12], J[..., 12]
+
+    return evaluate
+
+
+four_dof_residual_jac = _binary_jac(four_dof_residual)
+four_dof_switch_residual_jac = _binary_switch_jac(four_dof_switch_residual)
 
 
 # ---------------------------------------------------------------------------
@@ -236,3 +331,22 @@ def node_prior_block_products_t(q, t, prior_q, prior_t, weight):
     g = list(Mte) + list(diff)
     w2 = weight * weight
     return rsq * w2, _scaled_stack(A, w2), _scaled_stack(g, w2)
+
+
+def node_prior_residual_jac(q, t, prior_q, prior_t, weight):
+    """(r (batch,6), J (batch,6,6)) of the prior residual, closed-form:
+    d delta_t/dt = Rp^T, d delta_t/dtheta = 0, and the rotation rows'
+    d/dtheta = M(a = conj(prior_q), b = q) (see _M_from)."""
+    qpc = se3.quat_conj(prior_q)
+    RpT = se3.quat_to_rot(qpc)
+    dt_ = se3.quat_rotate(qpc, t - prior_t)
+    dq = se3.quat_mul(qpc, q)
+    r = torch.cat([dt_, 2.0 * dq[..., :3]], dim=-1)
+
+    M = torch.stack(_M_from(qpc.unbind(-1), q.unbind(-1)), dim=-1)
+    M = M.reshape(M.shape[:-1] + (3, 3))
+    zero = torch.zeros_like(M)
+    J = torch.cat([torch.cat([zero, RpT], dim=-1),
+                   torch.cat([M, zero], dim=-1)], dim=-2)
+    w = weight[..., None]
+    return r * w, J * w[..., None]

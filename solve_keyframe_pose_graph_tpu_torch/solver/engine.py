@@ -27,10 +27,17 @@ stream that was current on the submitting thread, so a problem built on one
 thread is consumed in order on another; every result crosses to the host by
 a copy that waits for its kernels.
 
-Left out: the incremental problem builder, the multi-chip mesh, and the
-reference's XLA compile-stall machinery (bucket ladder warmup, bucket cover,
-sticky tile_k, CPU-rung warm): eager PyTorch compiles nothing per shape, so
-warmup() builds the two kernels and primes one solve at the first bucket.
+The trigger's Problem comes from solver/incremental.py (stream.
+incremental_build, the default): the observation leaves stay on the device
+and only the new nodes' and edges' rows are built, bitwise equal to the full
+build_problem_np, which is taken otherwise. Each solve_stats row of a trigger
+records the build's wall time and the builds taken so far of each kind.
+
+Left out: the multi-device mesh (a config with mesh.n_devices > 1 is
+refused at construction, ROADMAP.md Queue 1 item 12) and the reference's XLA
+compile-stall machinery (bucket ladder warmup, bucket cover, sticky tile_k,
+CPU-rung warm): eager PyTorch compiles nothing per shape, so warmup() builds
+the two kernels and primes one solve at the first bucket.
 """
 
 from __future__ import annotations
@@ -55,6 +62,9 @@ from solve_keyframe_pose_graph_tpu_torch.utils.timing import PhaseTimer
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
+from solve_keyframe_pose_graph_tpu_torch.solver.incremental import (
+    IncrementalBuilder,
+)
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
     Problem, build_problem_np, solve_device,
 )
@@ -92,6 +102,17 @@ def _to_host(res: lm_ops.LMResult, node_len: int, edge_len: int
         converged=sc[6] > 0.5, cg_truncation=sc[7])
 
 
+def refuse_multi_device(config: Config) -> None:
+    """The port solves on one device: raise for a config that asks for a
+    mesh of several, rather than run it on one without a word."""
+    n = config.mesh.n_devices
+    if n > 1:
+        raise ValueError(
+            f"mesh.n_devices={n}: the PyTorch port solves on one device; "
+            "multi-GPU solving is not ported yet (ROADMAP.md Queue 1 item "
+            "12). Use mesh.n_devices=1")
+
+
 def _on_stream(device: torch.device):
     """A context that runs a worker thread's device work on the stream
     that is current on the calling thread (see the module note)."""
@@ -106,7 +127,13 @@ class SolverEngine:
                  device="cuda"):
         self.store = store
         self.config = config or Config()
+        refuse_multi_device(self.config)
         self.device = solve_device(device)
+        res_cfg = self.config.residual
+        self._builder = IncrementalBuilder(
+            fanout=res_cfg.odometry_fanout, odo_decay=res_cfg.odometry_decay,
+            odo_yaw_sigma2=res_cfg.odometry_yaw_sigma2)
+        self._scratch_builds = 0       # full builds outside the builder
 
         cap = self.config.capacity.initial_nodes
         self._opt_q = np.zeros((cap, 4)); self._opt_q[:, 3] = 1.0
@@ -286,7 +313,7 @@ class SolverEngine:
         tid = self.trigger_id
         with timer.phase("device_solve"):
             with self._device_lock:
-                problem, kw = self._prepare_solve(
+                problem, kw, build = self._prepare_solve(
                     node_len, edge_len, node_worlds, prior_idx, prior_q,
                     prior_t, prior_w)
             if self.config.stream.async_dispatch:
@@ -301,12 +328,12 @@ class SolverEngine:
                     _on_stream(self.device))
                 with self.state_lock:
                     self._pending = (fut, problem, kw, node_len, edge_len,
-                                     node_worlds, tid, t0)
+                                     node_worlds, tid, t0, build)
                 self.status = 3
                 return True
             res = self._solve_to_host(problem, kw, node_len, edge_len)
         self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, t0)
+                           tid, t0, build)
         return True
 
     def _solve_to_host(self, problem: Problem, kw: dict, node_len: int,
@@ -326,10 +353,11 @@ class SolverEngine:
             pending, self._pending = self._pending, None
         if pending is None:
             return False
-        fut, problem, kw, node_len, edge_len, node_worlds, tid, t0 = pending
+        (fut, problem, kw, node_len, edge_len, node_worlds, tid, t0,
+         build) = pending
         res = fut.result()
         self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, t0)
+                           tid, t0, build)
         return True
 
     def drain(self) -> bool:
@@ -354,9 +382,11 @@ class SolverEngine:
             raise err
 
     def _finish_solve(self, res: lm_ops.LMResult, problem: Problem, kw: dict,
-                      node_len, edge_len, node_worlds, tid, t0) -> None:
+                      node_len, edge_len, node_worlds, tid, t0,
+                      build: dict) -> None:
         """Escalate a distressed result if the config says so, then write
-        back. `res` is a host result (_to_host)."""
+        back. `res` is a host result (_to_host); `build` the problem build's
+        entries of the trigger's solve_stats row."""
         escalated = False
         solver = self.config.solver
         if (solver.adaptive_fp64 and solver.dtype != "float64"
@@ -391,6 +421,7 @@ class SolverEngine:
                 "distress_rejects": int(res.distress_rejects),
                 "fp64_escalated": escalated,
                 "trigger_wall_ms": 1000.0 * (time.perf_counter() - t0),
+                **build,
             })
         if bool(res.converged):
             self.n_solve_convergences += 1
@@ -562,8 +593,10 @@ class SolverEngine:
 
     def _prepare_solve(self, node_len, edge_len, node_worlds,
                        prior_idx, prior_q, prior_t, prior_w
-                       ) -> Tuple[Problem, dict]:
-        """The trigger's Problem on the device and its lm_solve kwargs."""
+                       ) -> Tuple[Problem, dict, dict]:
+        """The trigger's Problem on the device, its lm_solve kwargs and the
+        build's solve_stats entries: its wall time and the builds taken so
+        far, full and delta."""
         cfg = self.config
         cap = cfg.capacity
         ea, eb, eq, et, ew, emask = (a[:edge_len]
@@ -587,11 +620,17 @@ class SolverEngine:
         e_cap = _bucket(max(edge_len, 1), cap.initial_edges)
         p_cap = _bucket(max(len(prior_idx), 1), 16)
 
+        tb = time.perf_counter()
         with self.timer.phase("problem_build"):
             problem = self._build(
                 node_len, edge_len, node_worlds, prior_idx, prior_q, prior_t,
                 prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew, loop_valid,
                 vio_q[:node_len], vio_t[:node_len])
+        build = {
+            "problem_build_ms": 1000.0 * (time.perf_counter() - tb),
+            "full_builds": self._builder.full_builds + self._scratch_builds,
+            "delta_builds": self._builder.delta_builds,
+        }
 
         kw = lm_ops.cfg_lm_kwargs(
             cfg.solver, residual_mode=cfg.residual.mode,
@@ -608,15 +647,16 @@ class SolverEngine:
                 self._coarse_group_by_cap[n_cap] = (
                     coarse_ops.auto_coarse_group(n_cap, med), edge_len)
             kw["coarse_group"] = self._coarse_group_by_cap[n_cap][0]
-        return problem, kw
+        return problem, kw, build
 
     def _build(self, node_len, edge_len, node_worlds, prior_idx, prior_q,
                prior_t, prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew,
                loop_valid, vio_q, vio_t):
-        """The trigger's Problem, built from scratch on the engine's device
-        (the reference's incremental builder is not ported)."""
+        """The trigger's Problem on the engine's device: from the
+        incremental builder under stream.incremental_build, else from
+        scratch (the same Problem either way)."""
         cfg = self.config
-        return build_problem_np(
+        kwargs = dict(
             q=self._opt_q[:node_len], t=self._opt_t[:node_len],
             vio_q=vio_q, vio_t=vio_t, node_valid=node_worlds >= 0,
             loop_pairs=(np.stack([ea, eb], -1) if edge_len
@@ -629,11 +669,15 @@ class SolverEngine:
             prior_w=np.asarray(prior_w),
             node_free=~self._opt_frozen[:node_len],
             n_cap=n_cap, e_cap=e_cap, p_cap=p_cap,
-            fanout=cfg.residual.odometry_fanout,
-            odo_decay=cfg.residual.odometry_decay,
-            odo_yaw_sigma2=cfg.residual.odometry_yaw_sigma2,
             dtype=np.float64 if cfg.solver.dtype == "float64" else np.float32,
             device=self.device)
+        if cfg.stream.incremental_build:
+            return self._builder.build(**kwargs)
+        self._scratch_builds += 1
+        return build_problem_np(
+            fanout=cfg.residual.odometry_fanout,
+            odo_decay=cfg.residual.odometry_decay,
+            odo_yaw_sigma2=cfg.residual.odometry_yaw_sigma2, **kwargs)
 
     # ------------------------------------------------------------------
     # checkpoint-restore support

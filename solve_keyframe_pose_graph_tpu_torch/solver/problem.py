@@ -161,6 +161,85 @@ def odometry_grid_np(vio_q: np.ndarray, vio_t: np.ndarray,
     return oq, ot, ow, om
 
 
+def odometry_leaves_np(oq64, ot64, ow64, om64, width: int, dtype) -> dict:
+    """The four odometry leaves (F, width), padded past the given (F, n)
+    columns: identity rotations, zero translations, weights and masks."""
+    F, n = ow64.shape
+    oq = np.zeros((F, width, 4), dtype); oq[..., 3] = 1.0
+    ot = np.zeros((F, width, 3), dtype)
+    ow = np.zeros((F, width), dtype)
+    om = np.zeros((F, width), dtype)
+    oq[:, :n] = oq64
+    ot[:, :n] = ot64
+    ow[:, :n] = ow64
+    om[:, :n] = om64
+    return dict(odo_q=oq, odo_t=ot, odo_w=ow, odo_mask=om)
+
+
+def loop_leaves_np(loop_pairs, loop_q, loop_t, loop_w, loop_valid,
+                   width: int, dtype) -> dict:
+    """The six loop-edge leaves (width,) for the given edges, padded with
+    masked edges between node 0 and itself."""
+    e = len(loop_valid)
+    la = np.zeros((width,), np.int32)
+    lb = np.zeros((width,), np.int32)
+    lq = np.zeros((width, 4), dtype); lq[:, 3] = 1.0
+    lt = np.zeros((width, 3), dtype)
+    lw = np.zeros((width,), dtype)
+    lm = np.zeros((width,), dtype)
+    if e:
+        la[:e] = loop_pairs[:, 0]
+        lb[:e] = loop_pairs[:, 1]
+        lq[:e] = loop_q
+        lt[:e] = loop_t
+        lw[:e] = loop_w
+        lm[:e] = np.asarray(loop_valid).astype(dtype)
+    return dict(loop_a=la, loop_b=lb, loop_q=lq, loop_t=lt, loop_w=lw,
+                loop_mask=lm)
+
+
+def state_leaves_np(*, q, t, node_valid, node_free, switch, prior_idx,
+                    prior_q, prior_t, prior_w, n_cap, e_cap, p_cap,
+                    dtype) -> dict:
+    """The leaves that change from solve to solve: the node states and
+    masks, the switches and the priors, padded to the capacities."""
+    n, e, p = len(node_valid), len(switch), len(prior_idx)
+    qf = np.zeros((n_cap, 4), dtype); qf[:, 3] = 1.0
+    tf = np.zeros((n_cap, 3), dtype)
+    nm = np.zeros((n_cap,), dtype)
+    fm = np.zeros((n_cap,), dtype)
+    qf[:n] = q; tf[:n] = t
+    nm[:n] = node_valid.astype(dtype)
+    if node_free is None:
+        fm[:n] = node_valid.astype(dtype)
+    else:
+        fm[:n] = (node_valid & node_free).astype(dtype)
+    sw = np.full((e_cap,), 0.99, dtype)
+    if e:
+        sw[:e] = switch
+    pi = np.zeros((p_cap,), np.int32)
+    pq_ = np.zeros((p_cap, 4), dtype); pq_[:, 3] = 1.0
+    pt_ = np.zeros((p_cap, 3), dtype)
+    pw_ = np.zeros((p_cap,), dtype)
+    pm_ = np.zeros((p_cap,), dtype)
+    if p:
+        pi[:p] = prior_idx
+        pq_[:p] = prior_q
+        pt_[:p] = prior_t
+        pw_[:p] = prior_w
+        pm_[:p] = 1.0
+    return dict(q=qf, t=tf, node_mask=nm, free_mask=fm, switch=sw,
+                prior_idx=pi, prior_q=pq_, prior_t=pt_, prior_w=pw_,
+                prior_mask=pm_)
+
+
+def check_capacities(n: int, e: int, p: int, n_cap: int, e_cap: int,
+                     p_cap: int) -> None:
+    if not (n <= n_cap and e <= e_cap and p <= p_cap):
+        raise ValueError(
+            f"graph exceeds capacities: {(n, e, p)} > {(n_cap, e_cap, p_cap)}")
+
+
 def build_problem_np(
     *,
     q: np.ndarray,                 # (N,4) xyzw initial guesses
@@ -191,76 +270,23 @@ def build_problem_np(
     """Host-side construction of the padded Problem from numpy graph state,
     returned as tensors on `device` (the card unless the caller asks for
     the CPU, see solve_device). The odometry observations and their
-    yaw-dependent weights are computed on host in float64, then cast."""
+    yaw-dependent weights are computed on host in float64, then cast.
+    solver/incremental.py builds the same Problem from these helpers."""
     device = solve_device(device)
-    n = q.shape[0]
     e = loop_pairs.shape[0] if loop_pairs.size else 0
-    p = len(prior_idx)
-    if not (n <= n_cap and e <= e_cap and p <= p_cap):
-        raise ValueError(
-            f"graph exceeds capacities: {(n, e, p)} > {(n_cap, e_cap, p_cap)}")
-
-    # --- nodes
-    qf = np.zeros((n_cap, 4), dtype); qf[:, 3] = 1.0
-    tf = np.zeros((n_cap, 3), dtype)
-    nm = np.zeros((n_cap,), dtype)
-    fm = np.zeros((n_cap,), dtype)
-    qf[:n] = q; tf[:n] = t
-    nm[:n] = node_valid.astype(dtype)
-    if node_free is None:
-        fm[:n] = node_valid.astype(dtype)
-    else:
-        fm[:n] = (node_valid & node_free).astype(dtype)
-
-    # --- odometry grid from VIO (float64 host math, then cast)
-    oq64, ot64, ow64, om64 = odometry_grid_np(
-        vio_q, vio_t, node_valid, fanout=fanout, odo_decay=odo_decay,
-        odo_yaw_sigma2=odo_yaw_sigma2)
-    oq = np.zeros((fanout, n_cap, 4), dtype); oq[..., 3] = 1.0
-    ot = np.zeros((fanout, n_cap, 3), dtype)
-    ow = np.zeros((fanout, n_cap), dtype)
-    om = np.zeros((fanout, n_cap), dtype)
-    oq[:, :n] = oq64
-    ot[:, :n] = ot64
-    ow[:, :n] = ow64
-    om[:, :n] = om64
-
-    # --- loop edges
-    la = np.zeros((e_cap,), np.int32)
-    lb = np.zeros((e_cap,), np.int32)
-    lq = np.zeros((e_cap, 4), dtype); lq[:, 3] = 1.0
-    lt = np.zeros((e_cap, 3), dtype)
-    lw = np.zeros((e_cap,), dtype)
-    lm = np.zeros((e_cap,), dtype)
-    sw = np.full((e_cap,), 0.99, dtype)
-    if e:
-        la[:e] = loop_pairs[:, 0]
-        lb[:e] = loop_pairs[:, 1]
-        lq[:e] = loop_q
-        lt[:e] = loop_t
-        lw[:e] = loop_w
-        lm[:e] = loop_valid.astype(dtype)
-        sw[:e] = switch
-
-    # --- priors
-    pi = np.zeros((p_cap,), np.int32)
-    pq_ = np.zeros((p_cap, 4), dtype); pq_[:, 3] = 1.0
-    pt_ = np.zeros((p_cap, 3), dtype)
-    pw_ = np.zeros((p_cap,), dtype)
-    pm_ = np.zeros((p_cap,), dtype)
-    if p:
-        pi[:p] = prior_idx
-        pq_[:p] = prior_q
-        pt_[:p] = prior_t
-        pw_[:p] = prior_w
-        pm_[:p] = 1.0
-
-    return problem_from_arrays(dict(
-        q=qf, t=tf, node_mask=nm, free_mask=fm,
-        odo_q=oq, odo_t=ot, odo_w=ow, odo_mask=om,
-        loop_a=la, loop_b=lb, loop_q=lq, loop_t=lt, loop_w=lw, loop_mask=lm,
-        switch=sw, prior_idx=pi, prior_q=pq_, prior_t=pt_, prior_w=pw_,
-        prior_mask=pm_), device)
+    check_capacities(q.shape[0], e, len(prior_idx), n_cap, e_cap, p_cap)
+    odo = odometry_leaves_np(
+        *odometry_grid_np(vio_q, vio_t, node_valid, fanout=fanout,
+                          odo_decay=odo_decay, odo_yaw_sigma2=odo_yaw_sigma2),
+        n_cap, dtype)
+    loops = loop_leaves_np(loop_pairs[:e], loop_q, loop_t, loop_w,
+                           loop_valid[:e], e_cap, dtype)
+    state = state_leaves_np(
+        q=q, t=t, node_valid=node_valid, node_free=node_free,
+        switch=switch[:e], prior_idx=prior_idx, prior_q=prior_q,
+        prior_t=prior_t, prior_w=prior_w, n_cap=n_cap, e_cap=e_cap,
+        p_cap=p_cap, dtype=dtype)
+    return problem_from_arrays({**state, **odo, **loops}, device)
 
 
 def live_lengths(p: Problem) -> tuple[int, int]:

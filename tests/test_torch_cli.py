@@ -129,3 +129,57 @@ def test_cli_device_cuda_without_cuda_exits_nonzero(sphere_g2o,  # noqa: F811
     assert "no CUDA device" in str(exc.value.code)
     assert not (tmp_path / "x.json").exists()
     assert cli.main(["info", "--input", path]) == 0
+
+
+@pytest.mark.parametrize("entry", ["solve", "replay", "ablate", "server"])
+def test_config_residual_family_and_preconditioner_reach_the_solve(
+        sphere_g2o, tmp_path, monkeypatch, entry):  # noqa: F811
+    """residual.mode="4dof" and solver.preconditioner="band*coarse" in a
+    config JSON reach every lm_solve of the CLI's solve, replay and ablate
+    and of the server's trigger, and the incremental build (on by default)
+    is taken by the replay."""
+    from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
+    from solve_keyframe_pose_graph_tpu_torch.ops import lm as tlm
+    from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
+        PoseGraphServer,
+    )
+
+    path, g = sphere_g2o
+    cfg = _config()
+    cfg = dataclasses.replace(
+        cfg, capacity=CapacityConfig(initial_nodes=512, initial_edges=128),
+        solver=dataclasses.replace(cfg.solver, coarse_group=16,
+                                   preconditioner="band*coarse",
+                                   max_lm_iterations=1,
+                                   max_cg_iterations=5),
+        residual=dataclasses.replace(cfg.residual, mode="4dof"),
+        stream=dataclasses.replace(cfg.stream, incremental_build=True))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(cfg.to_json())
+    seen = []
+    solve = tlm.lm_solve
+
+    def spy(problem, **kw):
+        seen.append((kw["residual_mode"], kw["preconditioner"]))
+        return solve(problem, **kw)
+
+    monkeypatch.setattr(tlm, "lm_solve", spy)
+    out = str(tmp_path / "out.json")
+    args = {"solve": ["solve"],
+            "replay": ["replay", "--trigger-every", "200"],
+            "ablate": ["ablate", "--edges", "0"]}
+    if entry == "server":
+        store = GraphStore()
+        server = PoseGraphServer(store, cfg, device="cpu")
+        for i in range(40):
+            store.add_node(1000 + i, g.q[i], g.t[i])
+        store.add_loop_edge_by_index(0, 39, g.q[0], g.t[0], 1.0)
+        assert server.engine.trigger()
+    else:
+        assert cli.main(args[entry] + ["--input", path, "--config",
+                                       str(cfg_path), "--output", out,
+                                       "--device", "cpu"]) == 0
+    assert seen and set(seen) == {("4dof", "band*coarse")}
+    if entry == "replay":
+        rows = json.load(open(out))["solve_stats"]
+        assert len(rows) >= 2 and rows[-1]["delta_builds"] >= 1

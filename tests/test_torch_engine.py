@@ -395,6 +395,36 @@ def test_entry_points_default_to_the_card():
                         device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("entry", ["engine", "server", "cli"])
+def test_multi_device_config_is_refused(entry, tmp_path):
+    """mesh.n_devices > 1 is refused loudly by every entry point (the port
+    solves on one device; multi-GPU is ROADMAP.md Queue 1 item 12), and
+    mesh.n_devices == 1 is not."""
+    from solve_keyframe_pose_graph_tpu_torch import cli
+    from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
+        PoseGraphServer,
+    )
+
+    cfg = _config()
+    mesh4 = dataclasses.replace(
+        cfg, mesh=dataclasses.replace(cfg.mesh, n_devices=4))
+    if entry == "cli":
+        path = tmp_path / "mesh4.json"
+        path.write_text(mesh4.to_json())
+        store = GraphStore()
+        store.add_node(T0, nse3.quat_identity(), [0, 0, 0])
+        store.save_as_json(str(tmp_path / "g.json"))
+        with pytest.raises(SystemExit, match="item 12"):
+            cli.main(["solve", "--input", str(tmp_path / "g.json"),
+                      "--output", str(tmp_path / "out.json"), "--config",
+                      str(path), "--device", "cpu"])
+        return
+    make = SolverEngine if entry == "engine" else PoseGraphServer
+    with pytest.raises(ValueError, match="mesh.n_devices=4.*item 12"):
+        make(GraphStore(), mesh4, device="cpu")
+    assert make(GraphStore(), cfg, device="cpu").config.mesh.n_devices == 1
+
+
 def test_anchors_come_from_the_solved_nodes_under_concurrent_ingest():
     """The server ingests beside the solver: nodes, a kidnap and a new
     world can land between the trigger's read of node_len and its soft

@@ -140,6 +140,23 @@ prob = build_problem_np(
 res = lm_solve(prob, max_iterations=3, preconditioner="band+coarse",
                coarse_group=16)
 assert float(res.final_cost) < float(res.initial_cost)
+for kw in (dict(residual_mode="4dof"), dict(preconditioner="band*coarse")):
+    res = lm_solve(prob, max_iterations=3, max_cg_iterations=10,
+                   coarse_group=16, **kw)
+    assert float(res.final_cost) < float(res.initial_cost), kw
+from solve_keyframe_pose_graph_tpu_torch.solver.incremental import (
+    IncrementalBuilder)
+builder = IncrementalBuilder()
+for n, e in ((32, 4), (64, 8)):
+    builder.build(
+        q=g.vio_q[:n], t=g.vio_t[:n], vio_q=g.vio_q[:n], vio_t=g.vio_t[:n],
+        node_valid=np.ones(n, bool), loop_pairs=g.loop_pairs[:e],
+        loop_q=g.loop_q[:e], loop_t=g.loop_t[:e], loop_w=g.loop_w[:e],
+        loop_valid=np.ones(e, bool), switch=np.full(e, 0.99),
+        prior_idx=np.array([0]), prior_q=g.vio_q[:1], prior_t=g.vio_t[:1],
+        prior_w=np.array([1.1]), n_cap=256, e_cap=128, p_cap=2,
+        device="cpu")
+assert (builder.full_builds, builder.delta_builds) == (1, 1)
 assert cli.main(["solve", "--input", sys.argv[1], "--output", sys.argv[2],
                  "--max-iters", "2", "--device", "cpu"]) == 0
 bad = sorted(m for m in sys.modules if m.partition(".")[0] in
@@ -150,7 +167,8 @@ print(len(names))
 
 
 def test_port_imports_no_jax(sphere_g2o, tmp_path):  # noqa: F811
-    """Every module of the port and chip_smoke.py load, and a CPU lm_solve
+    """Every module of the port and chip_smoke.py load, and CPU lm_solves
+    (6-DOF with band+coarse and band*coarse, 4-DOF), two incremental builds
     and a CLI solve run, with jax and the JAX package refused by an import
     hook."""
     path, _ = sphere_g2o

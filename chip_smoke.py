@@ -55,11 +55,32 @@ Phases, one printed line each (or a few):
  13. incremental: phase 9's stream through the CLI's `replay --config`
      with stream.incremental_build on and off: the same final poses and
      switches, bit for bit, delta builds only when on, and the median
-     problem-build time per trigger both ways.
+     problem-build time per trigger both ways;
+ 14. mesh: the solve over a mesh of shards that all sit on this card
+     (parallel/): (a) the phase-5 problem at the product defaults on 4
+     shards, fp32, within 2% of the fp64 reference and 1e-3 of the
+     single-device chi^2 of this run, K1 launched 4 times and K2 once per
+     single-device launch, median ms per solve of both; (b) the
+     __graft_entry__.dryrun_multichip certificate on the card: the same
+     graph in fp64 on 8 shards (band+coarse, coarse_group 64, bcr_levels
+     2, 2 LM / 8 CG) against the unsharded fp64 solve, to 1e-9 in chi^2, q
+     and switches and 1e-8 in t; (c) pcg_sharded on phase 5's first
+     reduced system on 8 shards, its solution's relative residual in the
+     single-device reduced matvec below 1e-4, and the sharded halo matvec
+     (K1) against the single-device reduced_matvec_t (K1); (d) phase 9's
+     stream through SolverEngine on 4 shards of the card with async
+     dispatch (re-sharding every trigger, the full build, the solve on the
+     worker thread, the write-back from the gathered result) against the
+     unmeshed engine of this run, in fp64: the same triggers and LM
+     counts, and poses within 1e-8 of their scale; (e) the phase-5 problem
+     (fp32) on 4 shards through escalate_resolve's device rung (fp64,
+     sharded again over the mesh) against the unmeshed rung, within 1e-3
+     in chi^2. With two or more cards (a) also runs across distinct cards.
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
-no result line. Each path of phases 5 and 7-13 is run with the kernels'
+no result line. Each path of phases 5 and 7-14 is run with the kernels'
 launch counts set to 0 just before it and read just after (phase 8's
-exact-step self-reference and phase 12's CPU solve run outside them); where
+exact-step self-reference, phase 12's CPU solve and phase 14's unsharded
+references run outside them); where
 the code fixes a path's launches by its LM and CG counts, they must match
 (expected_launches, solve_launches). Then a JSON line with each kernel's
 numbers (launches summed over those paths, and by path), the card line
@@ -87,6 +108,7 @@ import numpy as np
 import torch
 
 from solve_keyframe_pose_graph_tpu_torch import certify, cli
+from solve_keyframe_pose_graph_tpu_torch.compose.composer import Composer
 from solve_keyframe_pose_graph_tpu_torch.config import Config
 from solve_keyframe_pose_graph_tpu_torch.graph import (
     messages, native, store as store_mod, synthetic,
@@ -95,6 +117,18 @@ from solve_keyframe_pose_graph_tpu_torch.ops import _kernels, band_matvec, gn
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import smallinv
 from solve_keyframe_pose_graph_tpu_torch.ops.lm import lm_solve
+from solve_keyframe_pose_graph_tpu_torch.parallel import (
+    make_mesh, shard_problem, unshard,
+)
+from solve_keyframe_pose_graph_tpu_torch.parallel.sharded_lm import (
+    HaloMatvec,
+)
+from solve_keyframe_pose_graph_tpu_torch.parallel.sharded_pcg import (
+    pcg_sharded, split_nodes,
+)
+from solve_keyframe_pose_graph_tpu_torch.parallel.sharding import (
+    edge_layout,
+)
 from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
     PoseGraphServer,
 )
@@ -1038,8 +1072,254 @@ def phase_incremental(tmp: str, card: str) -> None:
         nodes=len(on["poses"]), switches=len(on["switches"]))
 
 
+def mesh_solve(prob, devices: list, path: str) -> dict:
+    """Phase 14(a) on one mesh: the product solve, counted, then timed."""
+    mesh = make_mesh(devices=devices)
+    t0 = time.perf_counter()
+    sp = shard_problem(prob, mesh)
+    shard_s = time.perf_counter() - t0
+    with counted(path):
+        res = lm_solve(sp, **PRODUCT)
+        chi2 = float(res.final_cost)
+    lm_solve(sp, **PRODUCT)                      # warm-up
+    times = timed_solves(lambda: float(lm_solve(sp, **PRODUCT).final_cost))
+    return dict(res=res, chi2=chi2, shard_s=shard_s, times=times,
+                distinct=len(mesh.distinct))
+
+
+def phase_mesh(dev, card: str) -> None:
+    """Phase 14 (see the module note)."""
+    prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
+    # (a) the single-device reference of this run, uncounted
+    one = lm_solve(prob, **PRODUCT)
+    chi2_1 = float(one.final_cost)
+    lm_solve(prob, **PRODUCT)
+    t_one = timed_solves(lambda: float(lm_solve(prob, **PRODUCT).final_cost))
+    runs = [("mesh", [str(dev)] * 4)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("mesh-distinct-cards",
+                     [f"cuda:{i % n_cards}" for i in range(4)]))
+    for path, devices in runs:
+        m = mesh_solve(prob, devices, path)
+        res, chi2 = m["res"], m["chi2"]
+        if not (within_quality(chi2, CHI2_REF)
+                and abs(chi2 - chi2_1) <= 1e-3 * chi2_1):
+            raise AssertionError(f"{path}: chi^2 {chi2} vs the reference "
+                                 f"{CHI2_REF} and the single-device {chi2_1}")
+        if not all(bool(torch.isfinite(v).all()) for v in (res.q, res.t,
+                                                            res.switch)):
+            raise AssertionError(f"{path}: non-finite solution")
+        if tuple(res.q.shape) != (prob.n_cap, 4) or res.q.device != dev:
+            raise AssertionError(f"{path}: result {tuple(res.q.shape)} on "
+                                 f"{res.q.device}")
+        one_dev = solve_launches(res, PRODUCT["max_cg_iterations"])
+        check_launches(path, {"band_matvec": 4 * one_dev["band_matvec"],
+                              "gj_inv": m["distinct"] * one_dev["gj_inv"]})
+        say("mesh", path=path, shards=4, distinct_cards=m["distinct"],
+            chi2=chi2, single_device_chi2=chi2_1,
+            rel_diff=abs(chi2 - chi2_1) / chi2_1,
+            gap=f"{chi2 / CHI2_REF - 1:+.4%}",
+            lm_iterations=int(res.iterations),
+            single_device_lm_iterations=int(one.iterations),
+            cg_iterations=int(res.total_cg_iterations),
+            single_device_cg_iterations=int(one.total_cg_iterations),
+            launches=json.dumps(PATH_LAUNCHES[path], separators=(",", ":")),
+            single_device_launches=json.dumps(one_dev, separators=(",", ":")),
+            shard_problem_s=round(m["shard_s"], 4),
+            median_ms_per_solve=float(np.median(m["times"])),
+            all_ms=json.dumps([round(t, 3) for t in m["times"]]),
+            single_device_median_ms=float(np.median(t_one)),
+            single_device_all_ms=json.dumps([round(t, 3) for t in t_one]),
+            card=repr(card))
+    if n_cards < 2:
+        print("[mesh] distinct-card copies not exercised (1 card)",
+              flush=True)
+
+    # (b) __graft_entry__.dryrun_multichip's certificate, on the card
+    prob64 = circle_problem(5000, 10000, 8192, 16384, np.float64, dev)
+    kw = dict(max_iterations=2, max_cg_iterations=8,
+              preconditioner="band+coarse", coarse_group=64, bcr_levels=2)
+    sp64 = shard_problem(prob64, make_mesh(devices=[str(dev)] * 8))
+    with counted("mesh-certificate"):
+        t0 = time.perf_counter()
+        res_sh = lm_solve(sp64, **kw)
+        c_sh = float(res_sh.final_cost)
+        wall_sh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_1 = lm_solve(prob64, **kw)
+    c_1 = float(res_1.final_cost)
+    wall_1 = time.perf_counter() - t0
+    diffs = {name: float((getattr(res_sh, name) - getattr(res_1, name))
+                         .abs().max()) for name in ("q", "t", "switch")}
+    ok = (c_sh <= float(res_sh.initial_cost) * 1.000001
+          and abs(c_sh - c_1) <= 1e-9 * max(1.0, abs(c_1))
+          and diffs["q"] <= 1e-9 and diffs["t"] <= 1e-8
+          and diffs["switch"] <= 1e-9)
+    if not ok:
+        raise AssertionError(f"fp64 8-shard certificate: chi^2 {c_sh} vs "
+                             f"{c_1}, max diffs {diffs}")
+    one_dev = solve_launches(res_sh, kw["max_cg_iterations"])
+    check_launches("mesh-certificate",
+                   {"band_matvec": 8 * one_dev["band_matvec"],
+                    "gj_inv": one_dev["gj_inv"]})
+    say("mesh-certificate", shards=8, dtype="float64", chi2=c_sh,
+        unsharded_chi2=c_1, abs_diff=abs(c_sh - c_1),
+        max_abs_dq=diffs["q"], max_abs_dt=diffs["t"],
+        max_abs_dswitch=diffs["switch"], lm_iterations=int(res_sh.iterations),
+        cg_iterations=int(res_sh.total_cg_iterations),
+        launches=json.dumps(PATH_LAUNCHES["mesh-certificate"],
+                            separators=(",", ":")),
+        wall_s=round(wall_sh, 4), unsharded_wall_s=round(wall_1, 4),
+        card=repr(card))
+
+    # (c) pcg_sharded on phase 5's first reduced system, 8 shards
+    blocks = gn.assemble_t(prob, prob.q, prob.t, prob.switch)
+    radius = torch.tensor(1e4, dtype=prob.dtype, device=dev)
+    red = gn.schur_reduce_t(blocks, prob,
+                            *lm_ops.jacobi_scales(blocks.D, blocks.ds, radius))
+    mesh8 = make_mesh(devices=[str(dev)] * 8)
+    with counted("mesh-pcg-sharded"):
+        t0 = time.perf_counter()
+        x = pcg_sharded(red.Dh, red.Bh, red.Aba_h, prob.loop_b, prob.loop_a,
+                        red.rhs_n, mesh=mesh8, max_iterations=400,
+                        r_tolerance=1e-6, fanout=prob.fanout, coarse_group=64,
+                        free_mask=prob.free_mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    resid = gn.reduced_matvec_t(red, prob, x) - red.rhs_n
+    rel = float(resid.double().norm() / red.rhs_n.double().norm())
+    k1 = PATH_LAUNCHES["mesh-pcg-sharded"]
+    if not (rel < 1e-4 and all(k1.values()) and k1["band_matvec"] % 8 == 0):
+        raise AssertionError(f"pcg_sharded: relative residual {rel}, "
+                             f"launches {k1}")
+    # the sharded halo matvec against the single-device one, both K1
+    layout = edge_layout(prob.loop_b, prob.loop_a, prob.n_cap, prob.fanout,
+                         mesh8, live=prob.loop_mask)
+    mv = HaloMatvec(*(split_nodes(v, mesh8) for v in (red.Dh, red.Bh,
+                                                      red.Aba_h)), layout)
+    v = torch.randn(6, prob.n_cap, dtype=prob.dtype, device=dev)
+    y8 = unshard(mv(split_nodes(v, mesh8)))
+    y1 = gn.reduced_matvec_t(red, prob, v)
+    abs_err, mv_rel = rel_err(y8, y1)
+    if not mv_rel <= 1e-5:
+        raise AssertionError(f"sharded matvec vs single-device: rel err "
+                             f"{mv_rel}")
+    say("mesh-pcg-sharded", shards=8, dtype="float32", coarse_group=64,
+        rel_residual=rel, cg_iterations=k1["band_matvec"] // 8,
+        launches=json.dumps(k1, separators=(",", ":")), wall_s=round(wall, 4),
+        halo_matvec_max_abs_err=abs_err, halo_matvec_max_rel_err=mv_rel,
+        card=repr(card))
+
+    mesh_replay(dev, card)
+    mesh_escalation(dev, card, prob)
+
+
+def replay_engine(rec, dev, every: int, mesh=None) -> tuple:
+    """Phase 14(d): `rec` replayed through a SolverEngine (on `mesh` with
+    async dispatch, else on `dev` synchronously), without the escalation
+    ladder so that its rows fix its launches, and in fp64: in fp32 the two
+    orders of summation flip an LM stop now and then, which moved poses by
+    2e-4 of their scale on a 600-node version of the stream (CPU), where
+    fp64 agreed to 1e-13. Returns (trigger rows, final poses (n, 7), wall
+    seconds)."""
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False,
+                                        dtype="float64"),
+        stream=dataclasses.replace(cfg.stream,
+                                   async_dispatch=mesh is not None),
+        mesh=dataclasses.replace(cfg.mesh,
+                                 n_devices=len(mesh) if mesh else 1))
+    store = store_mod.GraphStore(initial_capacity=rec.node_len)
+    eng = SolverEngine(store, cfg, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    cli.replay_events(rec, store, eng, Composer(store, eng), every)
+    wall = time.perf_counter() - t0
+    poses = np.array([np.concatenate(eng.get_node_pose(i))
+                      for i in range(eng.n_opt_variables())])
+    rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
+    return rows, poses, wall
+
+
+def mesh_replay(dev, card: str) -> None:
+    """Phase 14(d) (see the module note); the unmeshed run is uncounted."""
+    with tempfile.TemporaryDirectory(prefix="kpg") as tmp:
+        stream = os.path.join(tmp, "stream.json")
+        info = make_stream(stream)
+        rec = store_mod.GraphStore.load_from_json(stream)
+    every = info["events"] // 10
+    rows_1, poses_1, wall_1 = replay_engine(rec, dev, every)
+    mesh = make_mesh(devices=[str(dev)] * 4)
+    with counted("mesh-replay"):
+        rows, poses, wall = replay_engine(rec, dev, every, mesh)
+    one_dev = expected_launches(rows)
+    check_launches("mesh-replay", {"band_matvec": 4 * one_dev["band_matvec"],
+                                   "gj_inv": one_dev["gj_inv"]})
+    lm, lm_1 = ([r["lm_iterations"] for r in x] for x in (rows, rows_1))
+    diff = float(np.abs(poses - poses_1).max()) if poses.shape == \
+        poses_1.shape else math.inf
+    scale = float(np.abs(poses_1).max())
+    sizes = [(r["node_len"], r["edge_len"]) for r in rows]
+    ok = (len(rows) >= 5 and lm == lm_1
+          and sizes == [(r["node_len"], r["edge_len"]) for r in rows_1]
+          and rows[-1]["delta_builds"] == 0 and diff <= 1e-8 * scale
+          and all(r["final_cost"] <= r["initial_cost"] for r in rows))
+    if not ok:
+        raise AssertionError(f"mesh replay: triggers {sizes}, LM {lm} vs "
+                             f"LM {lm_1}, max pose diff {diff} (scale "
+                             f"{scale}), delta builds "
+                             f"{rows[-1]['delta_builds']}")
+    say("mesh-replay", shards=4, dispatch="async", dtype="float64",
+        triggers=len(rows),
+        final_chi2=rows[-1]["final_cost"],
+        unmeshed_final_chi2=rows_1[-1]["final_cost"],
+        max_abs_pose_diff=diff, pose_scale=scale,
+        lm_iterations=json.dumps(lm),
+        median_trigger_wall_ms=float(np.median(
+            [r["trigger_wall_ms"] for r in rows])),
+        unmeshed_median_trigger_wall_ms=float(np.median(
+            [r["trigger_wall_ms"] for r in rows_1])),
+        replay_wall_s=round(wall, 3), unmeshed_replay_wall_s=round(wall_1, 3),
+        launches=json.dumps(PATH_LAUNCHES["mesh-replay"],
+                            separators=(",", ":")), card=repr(card))
+
+
+def mesh_escalation(dev, card: str, prob) -> None:
+    """Phase 14(e): the device rung on a ShardedProblem (the unmeshed rung
+    uncounted). Both run fp64 CG to its cap of 100 iterations, where two
+    runs whose sums differ only in order drift apart, hence 1e-3."""
+    want, _, _ = lm_ops.escalate_resolve(prob, PRODUCT, 0, fp64_backend="tpu")
+    chi2_1 = float(want.final_cost)
+    sp = shard_problem(prob, make_mesh(devices=[str(dev)] * 4))
+    with counted("mesh-escalation-fp64"):
+        t0 = time.perf_counter()
+        got, rung, _ = lm_ops.escalate_resolve(sp, PRODUCT, 0,
+                                               fp64_backend="tpu")
+        chi2 = float(got.final_cost)
+        wall = time.perf_counter() - t0
+    one_dev = solve_launches(got, 100)
+    check_launches("mesh-escalation-fp64",
+                   {"band_matvec": 4 * one_dev["band_matvec"],
+                    "gj_inv": one_dev["gj_inv"]})
+    if not (rung == "fp64" and got.q.dtype == torch.float64
+            and tuple(got.q.shape) == (prob.n_cap, 4)
+            and within_quality(chi2, CHI2_REF)
+            and abs(chi2 - chi2_1) <= 1e-3 * chi2_1):
+        raise AssertionError(f"mesh device rung: rung {rung!r}, chi^2 {chi2} "
+                             f"vs the unmeshed {chi2_1} and {CHI2_REF}")
+    say("mesh-escalation", shards=4, rung=rung, chi2=chi2,
+        unmeshed_chi2=chi2_1, rel_diff=abs(chi2 - chi2_1) / chi2_1,
+        lm_iterations=int(got.iterations),
+        cg_iterations=int(got.total_cg_iterations),
+        unmeshed_cg_iterations=int(want.total_cg_iterations),
+        wall_s=round(wall, 4),
+        launches=json.dumps(PATH_LAUNCHES["mesh-escalation-fp64"],
+                            separators=(",", ":")), card=repr(card))
+
+
 PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
-          "replay", "serve", "two-grid", "four-dof", "incremental")
+          "replay", "serve", "two-grid", "four-dof", "incremental", "mesh")
 
 
 def main(argv=None) -> None:
@@ -1083,6 +1363,8 @@ def main(argv=None) -> None:
             phase_four_dof(dev, card)
         if run("incremental"):
             phase_incremental(tmp, card)
+    if run("mesh"):
+        phase_mesh(dev, card)
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return

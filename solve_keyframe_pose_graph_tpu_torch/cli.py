@@ -13,7 +13,10 @@ plus --device):
                                                         (JSONL, Unix socket)
 
 --device (default cuda) is the device the engine solves on. With cuda and no
-CUDA device the command exits non-zero; it never carries on on the CPU.
+CUDA device the command exits non-zero; it never carries on on the CPU. A
+config with mesh.n_devices = P > 1 solves over a mesh of P shards
+(parallel/): the first P cards with --device cuda (fewer cards: the
+command exits non-zero), P CPU shards with --device cpu.
 Offline subcommands accept --viz-dir to dump TrajectoryWriter primitives.
 """
 
@@ -64,9 +67,16 @@ def _store_from_input(path: str, edge_mask=None, native: bool = False):
     return GraphStore.load_from_json(path, edge_mask=edge_mask)
 
 
-def _device_from_args(args) -> torch.device:
-    """The solve device; exits non-zero when CUDA is asked for and absent."""
+def _device_from_args(args, cfg: Config) -> torch.device:
+    """The solve device; exits non-zero when CUDA is asked for and absent,
+    or when the config's mesh asks for more cards than there are."""
     dev = torch.device(args.device)
+    need, have = cfg.mesh.n_devices, torch.cuda.device_count()
+    if dev.type == "cuda" and need > 1 and need > have:
+        raise SystemExit(
+            f"kpg-solve-torch: mesh.n_devices={need} needs {need} CUDA "
+            f"devices, {have} available; use --device cpu for a mesh of "
+            "CPU shards")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             f"kpg-solve-torch: --device {args.device} but no CUDA device is "
@@ -81,26 +91,20 @@ def _build_pipeline(store, cfg: Config, device):
         SolverEngine,
     )
 
-    eng = SolverEngine(store, cfg, device=device)
+    try:
+        eng = SolverEngine(store, cfg, device=device)
+    except ValueError as e:           # a config the engine cannot run
+        raise SystemExit(f"kpg-solve-torch: {e}") from None
     cmp_ = Composer(store, eng)
     return eng, cmp_
 
 
 def _config_from_args(args) -> Config:
-    """The run's Config; exits non-zero for one the port cannot run (a mesh
-    of several devices)."""
-    from solve_keyframe_pose_graph_tpu_torch.solver.engine import (
-        refuse_multi_device,
-    )
-
+    """The run's Config: --config, then the flags that override it."""
     cfg = Config()
     if getattr(args, "config", None):
         with open(args.config) as f:
             cfg = Config.from_json(f.read())
-    try:
-        refuse_multi_device(cfg)
-    except ValueError as e:
-        raise SystemExit(f"kpg-solve-torch: {e}") from None
     if getattr(args, "max_iters", None):
         import dataclasses
         cfg = dataclasses.replace(
@@ -174,8 +178,8 @@ def cmd_info(args):
 
 
 def cmd_solve(args):
-    dev = _device_from_args(args)
     cfg = _config_from_args(args)
+    dev = _device_from_args(args, cfg)
     store = _store_from_input(args.input)
     eng, cmp_ = _build_pipeline(store, cfg, dev)
     t0 = time.perf_counter()
@@ -199,8 +203,8 @@ def cmd_replay(args):
     """Feed recorded events through the live pipeline in timestamp order
     (ingest callbacks -> trigger loop -> composer), the offline twin of the
     reference's ROS-driven run."""
-    dev = _device_from_args(args)
     cfg = _config_from_args(args)
+    dev = _device_from_args(args, cfg)
     from solve_keyframe_pose_graph_tpu_torch.graph.native import make_store
 
     rec = _store_from_input(args.input)   # recorded data, replayed below
@@ -213,6 +217,32 @@ def cmd_replay(args):
         ok = cmp_.load_state_from_disk(args.load_dir)
         print(f"load_state_from_disk({args.load_dir}) -> {ok}")
 
+    t_start = time.perf_counter()
+    n_events, n_solves = replay_events(rec, store, eng, cmp_,
+                                       args.trigger_every)
+    wall = time.perf_counter() - t_start
+    print(f"replayed {n_events} events, {n_solves} solves, "
+          f"{wall:.2f} s wall")
+    if eng.solve_stats:
+        ms = [s["trigger_wall_ms"] for s in eng.solve_stats if "trigger_wall_ms" in s]
+        if ms:
+            print(f"solve wall per trigger: median {np.median(ms):.1f} ms, "
+                  f"p90 {np.percentile(ms, 90):.1f} ms")
+
+    if args.output:
+        _dump_solution(args.output, store, eng, cmp_)
+    _maybe_viz(args, cmp_, "replay")
+    if args.save_dir:
+        path = cmp_.save_state_to_disk(args.save_dir)
+        print(f"state -> {path}")
+    return 0
+
+
+def replay_events(rec, store, eng, cmp_, trigger_every: int
+                  ) -> tuple[int, int]:
+    """Feed the recorded graph `rec` into `store` in timestamp order,
+    calling eng.trigger() every `trigger_every` events (and composing after
+    each solve), then drain and settle. Returns (events, solves)."""
     # event tape: nodes, edges (at their later endpoint's time), kidnaps
     events = []
     for i in range(rec.node_len):
@@ -231,9 +261,8 @@ def cmd_replay(args):
         events.append((ts, 2, ("unkidnap",)))
     events.sort(key=lambda x: (x[0], x[1]))
 
-    trigger_every = max(1, int(args.trigger_every))
+    trigger_every = max(1, int(trigger_every))
     n_solves = 0
-    t_start = time.perf_counter()
     for n_ev, (ts, _, ev) in enumerate(events):
         kind = ev[0]
         if kind == "node":
@@ -250,28 +279,13 @@ def cmd_replay(args):
     eng.drain()          # barrier: async solve + background escalation
     eng.trigger()        # settle edges that accumulated while busy
     eng.drain()
-    wall = time.perf_counter() - t_start
-    print(f"replayed {len(events)} events, {n_solves} solves, "
-          f"{wall:.2f} s wall")
-    if eng.solve_stats:
-        ms = [s["trigger_wall_ms"] for s in eng.solve_stats if "trigger_wall_ms" in s]
-        if ms:
-            print(f"solve wall per trigger: median {np.median(ms):.1f} ms, "
-                  f"p90 {np.percentile(ms, 90):.1f} ms")
-
-    if args.output:
-        _dump_solution(args.output, store, eng, cmp_)
-    _maybe_viz(args, cmp_, "replay")
-    if args.save_dir:
-        path = cmp_.save_state_to_disk(args.save_dir)
-        print(f"state -> {path}")
-    return 0
+    return len(events), n_solves
 
 
 def cmd_serve(args):
     """Live ingest server on a Unix socket (the ROS-subscriber analog)."""
-    dev = _device_from_args(args)
     cfg = _config_from_args(args)
+    dev = _device_from_args(args, cfg)
     from solve_keyframe_pose_graph_tpu_torch.graph.native import make_store
     from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
         PoseGraphServer,
@@ -295,8 +309,8 @@ def cmd_ablate(args):
     """Edge-ablation study: re-solve with each listed edge disabled and
     report the chi^2 delta (offline replacement for the reference's
     debug_kf_slam_node OpenCV GUI)."""
-    dev = _device_from_args(args)
     cfg = _config_from_args(args)
+    dev = _device_from_args(args, cfg)
     store0 = _store_from_input(args.input)
     ne = store0.edge_len
     eng0, cmp0 = _build_pipeline(store0, cfg, dev)

@@ -11,8 +11,9 @@ reproducible from its config.
 
 Fields that only the JAX package reads (band_impl, loop_impl,
 io.compile_cache_dir, mesh.axis_name) are kept so that a config file loads
-in both; the port ignores them. The port solves on one device and refuses a
-config with mesh.n_devices > 1 (solver/engine.refuse_multi_device).
+in both; the port ignores them. mesh.n_devices > 1 solves over a mesh of
+that many shards (parallel/; solver/engine.py): that many cards on the
+card, or CPU shards on the CPU, and never fewer.
 """
 
 from __future__ import annotations

@@ -63,8 +63,19 @@ def build_coarse_inverse(red: gn_ops.ReducedSystemT, problem: Problem,
                          group: int) -> torch.Tensor:
     """H_c = P^T H_reduced P over `group`-node aggregates, inverted:
     (6M, 6M). Frozen and padded nodes contribute +I to their segment's
-    diagonal block, inert because the prolongation masks them out."""
-    Dh, Bh = red.Dh, red.Bh
+    diagonal block, inert because the prolongation masks them out. Only the
+    live edges' loop rows are summed (masked ones are zero and all alias
+    node 0)."""
+    return build_coarse_inverse_arrays(
+        red.Dh, red.Bh, red.Aba_h, problem.loop_b, problem.loop_a,
+        problem.loop_rows_by_node[0], problem.fanout, group)
+
+
+def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a, rows,
+                                fanout: int, group: int) -> torch.Tensor:
+    """build_coarse_inverse from the reduced blocks, summing the loop rows
+    `rows` of cat(b side, a side) in that order (a sorted accumulate, so
+    the sums repeat run to run)."""
     dt, dev = Dh.dtype, Dh.device
     Nc = Dh.shape[-1]
     c = int(group)
@@ -85,7 +96,7 @@ def build_coarse_inverse(red: gn_ops.ReducedSystemT, problem: Problem,
     #   boundary   (u-f-1 in the previous one)  -> (s, s-1) + transpose
     Hdiag = seg_sum(Dh.T)
     Hsub = torch.zeros((M, 36), dtype=dt, device=dev)  # block (s, s-1)
-    for f in range(problem.fanout):
+    for f in range(fanout):
         BT = Bh[f].T                                   # (Nc, 36)
         cross = ((u % c) <= f) & (u >= f + 1)
         BTc = BT * cross[:, None]
@@ -100,15 +111,12 @@ def build_coarse_inverse(red: gn_ops.ReducedSystemT, problem: Problem,
     Hc[s[:-1], s[1:]] = Hsub[1:, perm]
     Hc = Hc.reshape(M * M, 36)
 
-    # loop blocks couple arbitrary segment pairs. Only the live edges' rows
-    # are summed (masked ones are zero and all alias node 0), with a sorted
-    # accumulate: the order is fixed, so the sums repeat run to run
-    order, _ = problem.loop_rows_by_node
-    sb = seg[problem.loop_b]
-    sa = seg[problem.loop_a]
-    AT = red.Aba_h.T                                   # (Ec, 36)
-    Hc.index_put_((torch.cat([sb * M + sa, sa * M + sb])[order],),
-                  torch.cat([AT, AT[:, perm]])[order], accumulate=True)
+    # loop blocks couple arbitrary segment pairs
+    sb = seg[loop_b]
+    sa = seg[loop_a]
+    AT = Aba_h.T                                       # (Ec, 36)
+    Hc.index_put_((torch.cat([sb * M + sa, sa * M + sb])[rows],),
+                  torch.cat([AT, AT[:, perm]])[rows], accumulate=True)
 
     H = (Hc.reshape(M, M, 6, 6)
            .permute(0, 2, 1, 3)

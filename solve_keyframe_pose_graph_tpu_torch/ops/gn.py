@@ -327,9 +327,20 @@ class ReducedSystemT:
 def schur_reduce_t(gn: GNBlocksT, problem: Problem, scale_n, scale_s,
                    lm_n, lm_s) -> ReducedSystemT:
     """Jacobi-scale, LM-damp and eliminate the switch variables (each couples
-    only its own edge's two nodes, so the elimination is exact and O(E)).
-    scale_n (6,Nc), scale_s (Ec,), lm_n (6,Nc), lm_s (Ec,)."""
-    dt, dev = gn.D.dtype, gn.D.device
+    only its own edge's two nodes, so the elimination is exact and O(E)),
+    then project out the frozen nodes. scale_n (6,Nc), scale_s (Ec,), lm_n
+    (6,Nc), lm_s (Ec,)."""
+    return project_frozen_t(
+        schur_eliminate_t(gn, problem, scale_n, scale_s, lm_n, lm_s), problem)
+
+
+def schur_eliminate_t(gn: GNBlocksT, problem: Problem, scale_n, scale_s,
+                      lm_n, lm_s) -> ReducedSystemT:
+    """schur_reduce_t before the frozen-node projection. The sharded solve
+    (parallel/sharded_lm.py) runs it on each shard, sums the Schur
+    corrections that landed on other shards' nodes into their owners, and
+    projects after that."""
+    dev = gn.D.device
     ii, jj = _idx(_II, dev), _idx(_JJ, dev)
     si = scale_n[ii]                   # (36, Nc)
     sj = scale_n[jj]
@@ -358,21 +369,24 @@ def schur_reduce_t(gn: GNBlocksT, problem: Problem, scale_n, scale_s,
     corr = ds_inv * rhs_s
     rhs_n = rhs_n + scatter_loop_rows(problem, (-chb * corr).T,
                                       (-cha * corr).T).T
+    return ReducedSystemT(Dh=Dh, Bh=Bh, Aba_h=Aba_h, rhs_n=rhs_n,
+                          chb=chb, cha=cha, ds_inv=ds_inv, rhs_s=rhs_s)
 
-    # frozen-node projection: rows/cols -> 0, diag -> I, rhs -> 0
+
+def project_frozen_t(red: ReducedSystemT, problem: Problem) -> ReducedSystemT:
+    """Frozen-node projection: rows/cols -> 0, diag -> I, rhs -> 0. Writes
+    into red.Bh."""
     free = problem.free_mask[None, :]              # (1, Nc)
     fb = problem.free_mask[problem.loop_b][None, :]
     fa = problem.free_mask[problem.loop_a][None, :]
-    Dh = Dh * free + _eyecol(dt, dev)[:, None] * (1.0 - free)
+    Dh = (red.Dh * free
+          + _eyecol(red.Dh.dtype, red.Dh.device)[:, None] * (1.0 - free))
+    Bh = red.Bh
     for f in range(problem.fanout):
         Bh[f] *= free * shift_lanes_down(free, f + 1)
-    Aba_h = Aba_h * (fb * fa)
-    chb = chb * fb
-    cha = cha * fa
-    rhs_n = rhs_n * free
-
-    return ReducedSystemT(Dh=Dh, Bh=Bh, Aba_h=Aba_h, rhs_n=rhs_n,
-                          chb=chb, cha=cha, ds_inv=ds_inv, rhs_s=rhs_s)
+    return dataclasses.replace(
+        red, Dh=Dh, Bh=Bh, Aba_h=red.Aba_h * (fb * fa), chb=red.chb * fb,
+        cha=red.cha * fa, rhs_n=red.rhs_n * free)
 
 
 def _bmv(Bf, x):          # y_i = sum_j Bf[6i+j] * x[j]

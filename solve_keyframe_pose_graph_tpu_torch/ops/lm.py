@@ -20,7 +20,13 @@ On a CUDA problem every reduced matvec's band part runs kernel K1 and every
 BCR inverse kernel K2: the wrappers dispatch on the tensors' device, which
 replaces the reference's backend switch (lm.py:172-177). The LM loop reads
 its `done` flag on the host once per iteration, so a solve synchronises at
-most max_iterations + 1 times; CG never synchronises.
+most max_iterations + 1 times; CG never synchronises. The loop body reaches
+the Problem only through an ops object: DeviceOps for a Problem, and the
+one a problem of another layout brings (parallel.ShardedProblem.lm_ops,
+whose vectors are per-shard blocks; the reference runs the same lm_solve
+on a GSPMD-sharded Problem). The rungs reach a problem's layout only
+through its n_shards, gathered() and reshard(), so this module imports
+nothing of parallel/.
 
 Escalation ladder. A distressed fp32 solve (needs_escalation) is re-solved
 in fp64 from the same initial guesses on one of two rungs, chosen by
@@ -52,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 import time
 from typing import NamedTuple
 
@@ -132,8 +139,120 @@ def _apply_step(q, t, s, dx_n, dx_s, node_mask, renormalize: bool):
     return q * (1 - m) + q_new * m, t + dx_n[:, 3:6] * m, s + dx_s
 
 
+def band_factor(Dh, Bh, bcr_levels) -> band_ops.BCRFactor:
+    """The band BCR factorization of reduced blocks Dh (36,N), Bh (F,36,N),
+    on AoS super-node blocks (kernel K2 for CUDA tensors)."""
+    F = Bh.shape[0]
+    Bh_aos = torch.stack([gn_ops.t_blocks_to_aos(Bh[f]) for f in range(F)])
+    A_band, C_band, _ = band_ops.build_band_system(
+        gn_ops.t_blocks_to_aos(Dh), Bh_aos, group=F)
+    return band_ops.bcr_factorize(A_band, C_band, group=F,
+                                  max_levels=bcr_levels)
+
+
+def jacobi_scales(D, ds, radius):
+    """(scale_n, scale_s, lm_n, lm_s): the Jacobi column scaling of the
+    node blocks D (36,N) and switch diagonal ds (E,), and the LM diagonal
+    of the SCALED system, clamped as in Ceres."""
+    diag_n = D[list(gn_ops.DIAG36)]                            # (6, N)
+    scale_n = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag_n, min=0)))
+    scale_s = 1.0 / (1.0 + torch.sqrt(torch.clamp(ds, min=0)))
+    lm_n = torch.clamp(diag_n * scale_n * scale_n, MIN_LM_DIAGONAL,
+                       MAX_LM_DIAGONAL) / radius
+    lm_s = torch.clamp(ds * scale_s * scale_s, MIN_LM_DIAGONAL,
+                       MAX_LM_DIAGONAL) / radius
+    return scale_n, scale_s, lm_n, lm_s
+
+
+class DeviceOps:
+    """The LM loop's operations on a Problem on one device: the residual
+    family's assembly, the scaled and damped Schur reduction, the reduced
+    matvec, the preconditioner, the switch recovery and the step.
+    parallel/sharded_lm.ShardedOps has the same methods over a mesh, so
+    _lm_setup's loop body serves both."""
+
+    def __init__(self, problem: Problem, *, preconditioner: str,
+                 residual_mode: str, use_switch: bool, bcr_levels,
+                 coarse_group: int):
+        self.problem = problem
+        self.dtype, self.device = problem.dtype, problem.device
+        self.preconditioner = preconditioner
+        self.residual_mode = residual_mode
+        self.use_switch = use_switch
+        self.bcr_levels = bcr_levels
+        self.coarse_group = coarse_group
+
+    def initial(self):
+        p = self.problem
+        return p.q, p.t, p.switch
+
+    def assemble(self, q, t, s) -> gn_ops.GNBlocksT:
+        if self.residual_mode == "4dof":      # use_switch does not apply
+            return gn_ops.assemble_4dof_t(self.problem, q, t, s)
+        return gn_ops.assemble_t(self.problem, q, t, s,
+                                 use_switch=self.use_switch)
+
+    def reduce(self, blocks: gn_ops.GNBlocksT, radius):
+        scale_n, scale_s, lm_n, lm_s = jacobi_scales(blocks.D, blocks.ds,
+                                                     radius)
+        red = gn_ops.schur_reduce_t(blocks, self.problem, scale_n, scale_s,
+                                    lm_n, lm_s)
+        return red, scale_n, scale_s, lm_n, lm_s
+
+    def matvec(self, red: gn_ops.ReducedSystemT):
+        Aba_aos = gn_ops.t_blocks_to_aos(red.Aba_h)            # hoisted
+        return lambda p: gn_ops.reduced_matvec_t(red, self.problem, p,
+                                                 Aba_aos)
+
+    def precond(self, red: gn_ops.ReducedSystemT, mv):
+        """Preconditioner on (6,Nc) vectors, returning contiguous tensors
+        (the CG direction feeds kernel K1, which takes contiguous input).
+        mv, the reduced matvec, is used by the band*coarse two-grid."""
+        kind = self.preconditioner
+        if kind == "identity":
+            return lambda r: r
+        if kind == "jacobi":
+            Minv = smallinv.best_inv(gn_ops.t_blocks_to_aos(red.Dh))
+            return lambda r: torch.einsum(
+                "uij,uj->ui", Minv, r.T).T.contiguous()
+        fac = band_factor(red.Dh, red.Bh, self.bcr_levels)
+
+        def band(r):
+            return band_ops.band_precond_apply(fac, r.T).T
+
+        if kind == "band":
+            return lambda r: band(r).contiguous()
+        group = self.coarse_group
+        Hc_inv = coarse_ops.build_coarse_inverse(red, self.problem, group)
+
+        def coarse(r):
+            return coarse_ops.coarse_apply(Hc_inv, self.problem.free_mask, r,
+                                           group)
+
+        if kind == "band+coarse":
+            return lambda r: (band(r) + coarse(r)).contiguous()
+        return lambda r: coarse_ops.two_grid_apply(band, coarse, mv, r)
+
+    def recover(self, red: gn_ops.ReducedSystemT, x_n):
+        return gn_ops.recover_switches_t(red, self.problem, x_n)
+
+    def apply_step(self, q, t, s, dx_n, dx_s, renormalize: bool):
+        return _apply_step(q, t, s, dx_n, dx_s, self.problem.free_mask,
+                           renormalize)
+
+    def result(self, q, t, s):
+        return q, t, s
+
+
+def _make_ops(problem, **kw):
+    """DeviceOps for a Problem; a problem of another layout
+    (parallel.ShardedProblem) brings its own through lm_ops(**kw)."""
+    own = getattr(problem, "lm_ops", None)
+    return own(**kw) if own is not None else DeviceOps(problem, **kw)
+
+
 def _lm_setup(
-    problem: Problem,
+    problem,
     *,
     max_cg_iterations: int,
     cg_tolerance: float,
@@ -150,7 +269,7 @@ def _lm_setup(
     cg_warm_iters: int,
     cg_warm_mult: float,
 ):
-    """(init_state, body) of the LM loop."""
+    """(ops, init_state, body) of the LM loop."""
     if preconditioner not in PRECONDITIONERS:
         raise ValueError(f"preconditioner={preconditioner!r}; use one of "
                          f"{PRECONDITIONERS}")
@@ -159,8 +278,10 @@ def _lm_setup(
                          f"{RESIDUAL_MODES}")
     if coarse_group is None:
         coarse_group = coarse_ops.auto_coarse_group(problem.n_cap)
-    dt, dev = problem.dtype, problem.device
-    F = problem.fanout
+    ops = _make_ops(problem, preconditioner=preconditioner,
+                    residual_mode=residual_mode, use_switch=use_switch,
+                    bcr_levels=bcr_levels, coarse_group=coarse_group)
+    dt, dev = ops.dtype, ops.device
 
     def scalar(v):
         return torch.tensor(v, dtype=dt, device=dev)
@@ -169,80 +290,25 @@ def _lm_setup(
     tol_warm = scalar(cg_tolerance * cg_warm_mult)
     tol_tight = scalar(cg_tolerance * 0.1)
 
-    def assemble(q, t, s):
-        if residual_mode == "4dof":           # use_switch does not apply
-            return gn_ops.assemble_4dof_t(problem, q, t, s)
-        return gn_ops.assemble_t(problem, q, t, s, use_switch=use_switch)
-
-    def make_precond(red: gn_ops.ReducedSystemT, mv):
-        """Preconditioner on (6,Nc) vectors, returning contiguous tensors
-        (the CG direction feeds kernel K1, which takes contiguous input).
-        mv, the reduced matvec, is used by the band*coarse two-grid."""
-        if preconditioner == "identity":
-            return lambda r: r
-        if preconditioner == "jacobi":
-            Minv = smallinv.best_inv(gn_ops.t_blocks_to_aos(red.Dh))
-            return lambda r: torch.einsum(
-                "uij,uj->ui", Minv, r.T).T.contiguous()
-        # the BCR factorization runs on AoS super-node blocks
-        Bh_aos = torch.stack([gn_ops.t_blocks_to_aos(red.Bh[f])
-                              for f in range(F)])
-        A_band, C_band, _ = band_ops.build_band_system(
-            gn_ops.t_blocks_to_aos(red.Dh), Bh_aos, group=F)
-        fac = band_ops.bcr_factorize(A_band, C_band, group=F,
-                                     max_levels=bcr_levels)
-
-        def band(r):
-            return band_ops.band_precond_apply(fac, r.T).T
-
-        if preconditioner == "band":
-            return lambda r: band(r).contiguous()
-        Hc_inv = coarse_ops.build_coarse_inverse(red, problem, coarse_group)
-
-        def coarse(r):
-            return coarse_ops.coarse_apply(Hc_inv, problem.free_mask, r,
-                                           coarse_group)
-
-        if preconditioner == "band+coarse":
-            return lambda r: (band(r) + coarse(r)).contiguous()
-        return lambda r: coarse_ops.two_grid_apply(band, coarse, mv, r)
-
-    def reduce(blocks: gn_ops.GNBlocksT, radius):
-        diag_n = blocks.D[list(gn_ops.DIAG36)]                 # (6, Nc)
-        diag_s = blocks.ds                                     # (Ec,)
-        scale_n = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag_n, min=0)))
-        scale_s = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag_s, min=0)))
-        # LM diagonal of the SCALED system, clamped as in Ceres
-        lm_n = torch.clamp(diag_n * scale_n * scale_n, MIN_LM_DIAGONAL,
-                           MAX_LM_DIAGONAL) / radius
-        lm_s = torch.clamp(diag_s * scale_s * scale_s, MIN_LM_DIAGONAL,
-                           MAX_LM_DIAGONAL) / radius
-        red = gn_ops.schur_reduce_t(blocks, problem, scale_n, scale_s,
-                                    lm_n, lm_s)
-        return red, scale_n, scale_s, lm_n, lm_s
-
-    blocks0 = assemble(problem.q, problem.t, problem.switch)
+    q0, t0, s0 = ops.initial()
+    blocks0 = ops.assemble(q0, t0, s0)
     cost0 = blocks0.cost
 
     def body(state: _LoopState) -> _LoopState:
         blocks = state.blocks
-        red, scale_n, scale_s, lm_n, lm_s = reduce(blocks, state.radius)
+        red, scale_n, scale_s, lm_n, lm_s = ops.reduce(blocks, state.radius)
         g_n_hat = blocks.g_n * scale_n                         # (6, Nc)
-        Aba_aos = gn_ops.t_blocks_to_aos(red.Aba_h)            # hoisted
-
-        def mv(p):
-            return gn_ops.reduced_matvec_t(red, problem, p, Aba_aos)
+        mv = ops.matvec(red)
 
         # after a rejected step the retry solves CG 10x tighter
         tol_k = torch.where(state.k < cg_warm_iters, tol_warm, tol_base)
         tol_k = torch.where(state.tighten, tol_tight, tol_k)
         sol = pcg_ops.pcg_nodes(
-            mv, make_precond(red, mv), red.rhs_n,
+            mv, ops.precond(red, mv), red.rhs_n,
             max_iterations=max_cg_iterations, r_tolerance=tol_k,
             q_tolerance=cg_q_tolerance)
         dxh_n = sol.x                                          # (6, Nc)
-        dxh_s = gn_ops.recover_switches_t(red, problem, dxh_n)
-
+        dxh_s = ops.recover(red, dxh_n)
         # model cost change -g'.dx' - 0.5 dx'.H'.dx' (H' without the LM
         # diagonal) from reduced quantities: H_red xn = rhs_n - r_cg by the
         # CG recurrence, and the switch terms telescope
@@ -254,12 +320,11 @@ def _lm_setup(
 
         dx_n = (dxh_n * scale_n).T
         dx_s = dxh_s * scale_s
-        q_new, t_new, s_new = _apply_step(
-            state.q, state.t, state.s, dx_n, dx_s, problem.free_mask,
-            renormalize)
+        q_new, t_new, s_new = ops.apply_step(
+            state.q, state.t, state.s, dx_n, dx_s, renormalize)
         # speculative assembly at the candidate: its cost is the candidate
         # cost, and its blocks are the next linearization if accepted
-        blocks_new = assemble(q_new, t_new, s_new)
+        blocks_new = ops.assemble(q_new, t_new, s_new)
         new_cost = blocks_new.cost
 
         cost_change = state.cost - new_cost
@@ -305,14 +370,14 @@ def _lm_setup(
 
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     init = _LoopState(
-        q=problem.q, t=problem.t, s=problem.switch, blocks=blocks0,
+        q=q0, t=t0, s=s0, blocks=blocks0,
         cost=cost0, radius=scalar(initial_radius),
         decrease_factor=scalar(2.0), k=zero_i, accepted=zero_i,
         distress=zero_i, cg_total=zero_i, cg_trunc=scalar(0.0),
         done=torch.zeros((), dtype=torch.bool, device=dev),
         tighten=torch.zeros((), dtype=torch.bool, device=dev),
     )
-    return init, body
+    return ops, init, body
 
 
 def lm_solve(
@@ -339,7 +404,10 @@ def lm_solve(
     dispatch_lock=None,             # held around the setup and each LM
                                     # iteration (to its host sync)
 ) -> LMResult:
-    """One full LM solve of `problem` on its own device and dtype."""
+    """One full LM solve of `problem` on its own device and dtype. A
+    parallel.ShardedProblem is solved over its mesh (parallel/
+    sharded_lm.py), with the same mathematics; its result's q, t and switch
+    are gathered on the mesh's first device."""
     if precision != "native":
         raise ValueError(f"precision={precision!r} is not ported")
     # BCR and the coarse solve rely on full-fp32 batched products
@@ -348,7 +416,7 @@ def lm_solve(
     lock = dispatch_lock if dispatch_lock is not None else \
         contextlib.nullcontext()
     with lock:
-        state, body = _lm_setup(
+        ops, state, body = _lm_setup(
             problem, max_cg_iterations=max_cg_iterations,
             cg_tolerance=cg_tolerance, cg_q_tolerance=cg_q_tolerance,
             initial_radius=initial_radius,
@@ -367,8 +435,9 @@ def lm_solve(
         with lock:
             state = body(state)
             done = bool(state.done)       # one host sync per LM iteration
+    q, t, s = ops.result(state.q, state.t, state.s)
     return LMResult(
-        q=state.q, t=state.t, switch=state.s,
+        q=q, t=t, switch=s,
         initial_cost=cost0, final_cost=state.cost,
         iterations=state.k, successful_steps=state.accepted,
         distress_rejects=state.distress,
@@ -417,7 +486,8 @@ def escalate_resolve(problem: Problem, lm_kw: dict, escalate_rejects: int,
     statistics): rung "fp64-cpu" or "fp64", statistics a dict with at
     least `total_s`, the rung's wall time. escalate_rejects is unused by
     the two-rung ladder (the reference's mixed rung consulted it) and kept
-    for its signature."""
+    for its signature. A parallel.ShardedProblem takes the host rung
+    gathered, and the device rung sharded over its mesh."""
     del escalate_rejects
     if fp64_backend not in FP64_BACKENDS:
         raise ValueError(f"fp64_backend={fp64_backend!r}; use one of "
@@ -427,7 +497,7 @@ def escalate_resolve(problem: Problem, lm_kw: dict, escalate_rejects: int,
         if cpu_rung.available(lm_kw):
             try:
                 res, stats = cpu_rung.cpu_fp64_resolve(
-                    problem, lm_kw, dispatch_lock=dispatch_lock)
+                    problem.gathered(), lm_kw, dispatch_lock=dispatch_lock)
                 return res, "fp64-cpu", stats
             except Exception:
                 if fp64_backend == "cpu":
@@ -456,24 +526,30 @@ def fp64_resolve(problem: Problem, lm_kw: dict, *,
     bench problem both packages land at chi^2 0.4061 from n_cap 5120 and at
     71.18 from n_cap 5000 (the exact live length), so the port keeps the
     reference's granularity. The result is padded back to the caller's
-    capacities; the truncated trailing entries keep their input values."""
+    capacities; the truncated trailing entries keep their input values. A
+    parallel.ShardedProblem is gathered, repacked and sharded again over
+    its mesh, as the reference's rung runs a sharded Problem on its mesh;
+    its capacities are multiples of lcm(1024, shards), so that the mesh
+    divides them (1024 for a power-of-two mesh)."""
     kw64 = dict(lm_kw)
     kw64["cg_tolerance"] = min(1e-5, float(lm_kw.get("cg_tolerance", 1e-2)))
     kw64["max_cg_iterations"] = max(100,
                                     int(lm_kw.get("max_cg_iterations", 60)))
     kw64["cg_warm_iters"] = 0
     kw64["cg_q_tolerance"] = 0.0
-    n_len, e_len = live_lengths(problem)
-    small = repack_problem(problem, n_len, e_len)
-    res = lm_solve(problem_astype(small, torch.float64),
-                   dispatch_lock=dispatch_lock, **kw64)
-    if small.n_cap != problem.n_cap or small.e_cap != problem.e_cap:
+    whole = problem.gathered()
+    n_len, e_len = live_lengths(whole)
+    small = repack_problem(whole, n_len, e_len,
+                           granularity=math.lcm(1024, problem.n_shards))
+    small64 = problem.reshard(problem_astype(small, torch.float64))
+    res = lm_solve(small64, dispatch_lock=dispatch_lock, **kw64)
+    if small.n_cap != whole.n_cap or small.e_cap != whole.e_cap:
         def pad(full, part):
             out = full.to(part.dtype).clone()
             out[: part.shape[0]] = part
             return out
-        res = res._replace(q=pad(problem.q, res.q), t=pad(problem.t, res.t),
-                           switch=pad(problem.switch, res.switch))
+        res = res._replace(q=pad(whole.q, res.q), t=pad(whole.t, res.t),
+                           switch=pad(whole.switch, res.switch))
     return res
 
 

@@ -49,10 +49,11 @@ def _pose_matrix_list(q, t):
 class PoseGraphServer:
     def __init__(self, store, config: Optional[Config] = None,
                  save_dir: Optional[str] = None,
-                 load_dir: Optional[str] = None, device="cuda"):
+                 load_dir: Optional[str] = None, device="cuda", mesh=None):
         self.store = store
         self.config = config or Config()
-        self.engine = SolverEngine(store, self.config, device=device)
+        self.engine = SolverEngine(store, self.config, device=device,
+                                   mesh=mesh)
         self.composer = Composer(store, self.engine)
         self.save_dir = save_dir
         self.logger = get_logger("kpg-serve")

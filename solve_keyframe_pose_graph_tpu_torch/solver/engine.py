@@ -33,11 +33,16 @@ and only the new nodes' and edges' rows are built, bitwise equal to the full
 build_problem_np, which is taken otherwise. Each solve_stats row of a trigger
 records the build's wall time and the builds taken so far of each kind.
 
-Left out: the multi-device mesh (a config with mesh.n_devices > 1 is
-refused at construction, ROADMAP.md Queue 1 item 12) and the reference's XLA
-compile-stall machinery (bucket ladder warmup, bucket cover, sticky tile_k,
-CPU-rung warm): eager PyTorch compiles nothing per shape, so warmup() builds
-the two kernels and primes one solve at the first bucket.
+With config.mesh.n_devices = P > 1 the engine solves over a mesh of P
+shards (parallel/): the `mesh` passed in, or the first P cards for a cuda
+device and P CPU shards for the CPU; too few cards raise at construction.
+As in the reference, the mesh path takes the full problem build, shards it
+(parallel.shard_problem) and writes back from the gathered result.
+
+Left out: the reference's XLA compile-stall machinery (bucket ladder
+warmup, bucket cover, sticky tile_k, CPU-rung warm): eager PyTorch compiles
+nothing per shape, so warmup() builds the two kernels and primes one solve
+at the first bucket.
 """
 
 from __future__ import annotations
@@ -62,6 +67,9 @@ from solve_keyframe_pose_graph_tpu_torch.utils.timing import PhaseTimer
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
+from solve_keyframe_pose_graph_tpu_torch.parallel.sharding import (
+    Mesh, engine_mesh, shard_problem, split_sizes,
+)
 from solve_keyframe_pose_graph_tpu_torch.solver.incremental import (
     IncrementalBuilder,
 )
@@ -102,17 +110,6 @@ def _to_host(res: lm_ops.LMResult, node_len: int, edge_len: int
         converged=sc[6] > 0.5, cg_truncation=sc[7])
 
 
-def refuse_multi_device(config: Config) -> None:
-    """The port solves on one device: raise for a config that asks for a
-    mesh of several, rather than run it on one without a word."""
-    n = config.mesh.n_devices
-    if n > 1:
-        raise ValueError(
-            f"mesh.n_devices={n}: the PyTorch port solves on one device; "
-            "multi-GPU solving is not ported yet (ROADMAP.md Queue 1 item "
-            "12). Use mesh.n_devices=1")
-
-
 def _on_stream(device: torch.device):
     """A context that runs a worker thread's device work on the stream
     that is current on the calling thread (see the module note)."""
@@ -124,11 +121,20 @@ def _on_stream(device: torch.device):
 
 class SolverEngine:
     def __init__(self, store: GraphStore, config: Optional[Config] = None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         self.store = store
         self.config = config or Config()
-        refuse_multi_device(self.config)
-        self.device = solve_device(device)
+        cfg = self.config
+        if mesh is None and cfg.mesh.n_devices <= 1:
+            self.mesh = None
+            self.device = solve_device(device)
+        else:
+            self.mesh = engine_mesh(cfg.mesh.n_devices, torch.device(device),
+                                    mesh)
+            # every capacity bucket is the first one doubled
+            split_sizes(cfg.capacity.initial_nodes, cfg.capacity.initial_edges,
+                        cfg.residual.odometry_fanout, len(self.mesh))
+            self.device = self.mesh.devices[0]
         res_cfg = self.config.residual
         self._builder = IncrementalBuilder(
             fanout=res_cfg.odometry_fanout, odo_decay=res_cfg.odometry_decay,
@@ -632,6 +638,8 @@ class SolverEngine:
             "delta_builds": self._builder.delta_builds,
         }
 
+        if self.mesh is not None:
+            problem = shard_problem(problem, self.mesh)
         kw = lm_ops.cfg_lm_kwargs(
             cfg.solver, residual_mode=cfg.residual.mode,
             use_switch=cfg.residual.use_switch_constraints)
@@ -653,8 +661,9 @@ class SolverEngine:
                prior_t, prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew,
                loop_valid, vio_q, vio_t):
         """The trigger's Problem on the engine's device: from the
-        incremental builder under stream.incremental_build, else from
-        scratch (the same Problem either way)."""
+        incremental builder under stream.incremental_build, else (and on a
+        mesh, which re-shards every trigger's Problem) from scratch: the
+        same Problem either way."""
         cfg = self.config
         kwargs = dict(
             q=self._opt_q[:node_len], t=self._opt_t[:node_len],
@@ -671,7 +680,7 @@ class SolverEngine:
             n_cap=n_cap, e_cap=e_cap, p_cap=p_cap,
             dtype=np.float64 if cfg.solver.dtype == "float64" else np.float32,
             device=self.device)
-        if cfg.stream.incremental_build:
+        if cfg.stream.incremental_build and self.mesh is None:
             return self._builder.build(**kwargs)
         self._scratch_builds += 1
         return build_problem_np(
@@ -777,6 +786,8 @@ class SolverEngine:
                 dtype=(np.float64 if cfg.solver.dtype == "float64"
                        else np.float32),
                 device=self.device)
+            if self.mesh is not None:
+                problem = shard_problem(problem, self.mesh)
             float(lm_ops.lm_solve(problem, **kw).final_cost)
 
     def run(self, poll_hz: Optional[float] = None, stop_when=None) -> None:

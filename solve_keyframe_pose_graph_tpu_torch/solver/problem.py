@@ -88,6 +88,18 @@ class Problem:
     def device(self) -> torch.device:
         return self.q.device
 
+    # the layout protocol that ops/lm.py reads; parallel.ShardedProblem
+    # answers it for a Problem split over a mesh (and adds lm_ops)
+    n_shards = 1
+
+    def gathered(self) -> Problem:
+        """The whole Problem on one device: this one."""
+        return self
+
+    def reshard(self, p: Problem) -> Problem:
+        """Another Problem laid out as this one is: on one device."""
+        return p
+
     @functools.cached_property
     def loop_rows_by_node(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(order, counts) for the loop-edge row scatter of ops/gn.py
@@ -96,11 +108,18 @@ class Problem:
         node; `counts` (Nc,) is the number of rows per node. Masked edges
         carry zero rows and are left out. Built once per Problem on its
         device (one host sync)."""
-        node = torch.cat([self.loop_b, self.loop_a]).long()
-        rows = torch.nonzero((self.loop_mask > 0.5).repeat(2)).squeeze(1)
-        node = node[rows]
-        order = torch.argsort(node, stable=True)
-        return rows[order], torch.bincount(node, minlength=self.n_cap)
+        return loop_rows_by_node(self.loop_b, self.loop_a, self.loop_mask,
+                                 self.n_cap)
+
+
+def loop_rows_by_node(loop_b, loop_a, loop_mask, n: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Problem.loop_rows_by_node for loop endpoints on n nodes."""
+    node = torch.cat([loop_b, loop_a]).long()
+    rows = torch.nonzero((loop_mask > 0.5).repeat(2)).squeeze(1)
+    node = node[rows]
+    order = torch.argsort(node, stable=True)
+    return rows[order], torch.bincount(node, minlength=n)
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Problem))

@@ -397,31 +397,50 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("entry", ["engine", "server", "cli"])
 def test_multi_device_config_is_refused(entry, tmp_path):
-    """mesh.n_devices > 1 is refused loudly by every entry point (the port
-    solves on one device; multi-GPU is ROADMAP.md Queue 1 item 12), and
-    mesh.n_devices == 1 is not."""
+    """A cuda config asking for more cards than exist is refused at
+    construction by every entry point, naming how many there are; the same
+    mesh of CPU shards runs (parallel/), and a mesh passed in must have
+    mesh.n_devices shards on the entry point's device type. Nothing runs
+    on fewer devices than asked for, or on other ones."""
     from solve_keyframe_pose_graph_tpu_torch import cli
+    from solve_keyframe_pose_graph_tpu_torch.parallel import make_mesh
     from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
         PoseGraphServer,
     )
 
+    have = torch.cuda.device_count()
+    need = max(2, have + 1)
     cfg = _config()
-    mesh4 = dataclasses.replace(
-        cfg, mesh=dataclasses.replace(cfg.mesh, n_devices=4))
+    too_many = dataclasses.replace(
+        cfg, mesh=dataclasses.replace(cfg.mesh, n_devices=need))
     if entry == "cli":
-        path = tmp_path / "mesh4.json"
-        path.write_text(mesh4.to_json())
+        path = tmp_path / "mesh.json"
+        path.write_text(too_many.to_json())
         store = GraphStore()
         store.add_node(T0, nse3.quat_identity(), [0, 0, 0])
         store.save_as_json(str(tmp_path / "g.json"))
-        with pytest.raises(SystemExit, match="item 12"):
-            cli.main(["solve", "--input", str(tmp_path / "g.json"),
-                      "--output", str(tmp_path / "out.json"), "--config",
-                      str(path), "--device", "cpu"])
+        argv = ["solve", "--input", str(tmp_path / "g.json"), "--output",
+                str(tmp_path / "out.json"), "--config", str(path)]
+        with pytest.raises(SystemExit,
+                           match=f"needs {need} CUDA devices, {have} "
+                           "available"):
+            cli.main(argv + ["--device", "cuda"])
+        assert cli.main(argv + ["--device", "cpu"]) == 0
         return
     make = SolverEngine if entry == "engine" else PoseGraphServer
-    with pytest.raises(ValueError, match="mesh.n_devices=4.*item 12"):
-        make(GraphStore(), mesh4, device="cpu")
+    with pytest.raises(ValueError, match=f"need {need} cuda devices.*"
+                       f"have {have}"):
+        make(GraphStore(), too_many, device="cuda")
+    with pytest.raises(ValueError, match=f"passed in has {need + 1} shards"):
+        make(GraphStore(), too_many, device="cpu",
+             mesh=make_mesh(devices=["cpu"] * (need + 1)))
+    with pytest.raises(ValueError, match="device cuda but the mesh passed "
+                       "in is on"):
+        make(GraphStore(), too_many, device="cuda",
+             mesh=make_mesh(devices=["cpu"] * need))
+    meshed = make(GraphStore(), too_many, device="cpu")
+    engine = meshed if entry == "engine" else meshed.engine
+    assert len(engine.mesh) == need and engine.device.type == "cpu"
     assert make(GraphStore(), cfg, device="cpu").config.mesh.n_devices == 1
 
 

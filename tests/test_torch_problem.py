@@ -115,6 +115,8 @@ class Refuse:
 
 sys.meta_path.insert(0, Refuse())
 import numpy as np
+import torch
+torch.set_num_threads(1)        # as test_torch_threads pins the workers
 import solve_keyframe_pose_graph_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                 pkg.__name__ + ".")]
@@ -122,6 +124,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke                       # its main() is guarded
 assert len(names) >= 25, names
+assert {pkg.__name__ + ".parallel." + m for m in
+        ("sharding", "collectives", "sharded_lm", "sharded_pcg")} <= set(names)
 
 from solve_keyframe_pose_graph_tpu_torch import cli
 from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
@@ -144,6 +148,12 @@ for kw in (dict(residual_mode="4dof"), dict(preconditioner="band*coarse")):
     res = lm_solve(prob, max_iterations=3, max_cg_iterations=10,
                    coarse_group=16, **kw)
     assert float(res.final_cost) < float(res.initial_cost), kw
+from solve_keyframe_pose_graph_tpu_torch.parallel import (
+    make_mesh, shard_problem)
+res = lm_solve(shard_problem(prob, make_mesh(2, device_type="cpu")),
+               max_iterations=3, preconditioner="band+coarse",
+               coarse_group=16)
+assert float(res.final_cost) < float(res.initial_cost)
 from solve_keyframe_pose_graph_tpu_torch.solver.incremental import (
     IncrementalBuilder)
 builder = IncrementalBuilder()
@@ -167,10 +177,10 @@ print(len(names))
 
 
 def test_port_imports_no_jax(sphere_g2o, tmp_path):  # noqa: F811
-    """Every module of the port and chip_smoke.py load, and CPU lm_solves
-    (6-DOF with band+coarse and band*coarse, 4-DOF), two incremental builds
-    and a CLI solve run, with jax and the JAX package refused by an import
-    hook."""
+    """Every module of the port (parallel/* included) and chip_smoke.py
+    load, and CPU lm_solves (6-DOF with band+coarse and band*coarse, 4-DOF,
+    and a 2-shard CPU mesh), two incremental builds and a CLI solve run,
+    with jax and the JAX package refused by an import hook."""
     path, _ = sphere_g2o
     out_json = str(tmp_path / "solve.json")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -22,11 +22,19 @@ Phases, one printed line each (or a few):
      fp64 exact-step reference, the LM and CG counts and the median time per
      solve; then the same solver on a small graph on the card and on the
      CPU, which must agree;
-  6. the streaming engine answering four triggers of a 2,000-node stream;
-  7. escalation: the phase-5 bench problem (fp32) through escalate_resolve
-     with escalation forced, on the host fp64 rung ("auto") and on the
-     device rung (K1 and K2 in fp64), each landing within 2% of the fp64
-     reference chi^2, with wall times;
+  6. the streaming engine answering four triggers of a 2,000-node stream,
+     after warmup() (which loads the host fp64 rung on its own thread),
+     each trigger escalated (forced) to the host rung in the background:
+     the first escalation's wall beside its rung's own total_s;
+  7. escalation: the mixed rung on the phase-5 bench problem
+     (lm_solve(precision="mixed"): fp64 assembly, cost and state, K1 and K2
+     in fp32, every launch of the fp32 entry points), within 2% of the
+     fp64 reference chi^2 and 5e-3 of phase 5's fp32 chi^2, with the median
+     time per solve; then the problem (fp32) through escalate_resolve with
+     escalation forced, on the host fp64 rung ("auto") and on the device
+     ladder ("tpu": the mixed rung, then the fp64 rung with K1 and K2 in
+     fp64, launches split by precision as the rung statistics imply),
+     each landing within 2% of the fp64 reference chi^2, with wall times;
   8. cli-solve: the port CLI's `solve` at the product defaults on
      bench_seed0 and bench_seed1 (5,000 nodes, 10,000 loop edges, 20%
      outliers), its launch counts equal to what its solve_stats rows
@@ -51,7 +59,8 @@ Phases, one printed line each (or a few):
      solve; a 300-node 4-DOF graph in fp64 on the card and on the CPU,
      which must agree to 1e-9 in chi^2; and the bench problem through
      escalate_resolve with escalation forced under "auto", which for this
-     family must take the device rung (K1 and K2 in fp64);
+     family must take the device ladder (the mixed rung, then the fp64
+     rung);
  13. incremental: phase 9's stream through the CLI's `replay --config`
      with stream.incremental_build on and off: the same final poses and
      switches, bit for bit, delta builds only when on, and the median
@@ -73,16 +82,19 @@ Phases, one printed line each (or a few):
      worker thread, the write-back from the gathered result) against the
      unmeshed engine of this run, in fp64: the same triggers and LM
      counts, and poses within 1e-8 of their scale; (e) the phase-5 problem
-     (fp32) on 4 shards through escalate_resolve's device rung (fp64,
-     sharded again over the mesh) against the unmeshed rung, within 1e-3
-     in chi^2. With two or more cards (a) also runs across distinct cards.
+     (fp32) on 4 shards through escalate_resolve's device ladder (the mixed
+     rung on the shards, then the fp64 rung sharded again over the mesh)
+     against the unmeshed ladder, within 1e-3 in chi^2. With two or more
+     cards (a) also runs across distinct cards.
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
 no result line. Each path of phases 5 and 7-14 is run with the kernels'
 launch counts set to 0 just before it and read just after (phase 8's
 exact-step self-reference, phase 12's CPU solve and phase 14's unsharded
 references run outside them); where
 the code fixes a path's launches by its LM and CG counts, they must match
-(expected_launches, solve_launches). Then a JSON line with each kernel's
+(expected_launches, solve_launches, ladder_launches: a device-ladder
+escalation is its mixed rung's LM iterations at the caller's CG cap plus,
+when it climbed, the fp64 rung's at 100). Then a JSON line with each kernel's
 numbers (launches summed over those paths, and by path), the card line
 again, and last {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero before that last line; there is no CPU fallback.
@@ -132,6 +144,7 @@ from solve_keyframe_pose_graph_tpu_torch.parallel.sharding import (
 from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
     PoseGraphServer,
 )
+from solve_keyframe_pose_graph_tpu_torch.solver import native_ldl
 from solve_keyframe_pose_graph_tpu_torch.solver.engine import SolverEngine
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
     build_problem_np, problem_astype,
@@ -514,6 +527,7 @@ def phase_solve(dev, card: str) -> dict:
         launches=json.dumps(launches, separators=(",", ":")),
         median_ms_per_solve=float(np.median(times)),
         all_ms=json.dumps([round(t, 3) for t in times]), card=repr(card))
+    fp32_chi2 = chi2
 
     # the same solver on a small graph, on the card (fp64, through both
     # kernels) and on the CPU (plain versions): the results must agree
@@ -532,13 +546,28 @@ def phase_solve(dev, card: str) -> dict:
     say("solve-small", cuda_chi2=float(g.final_cost),
         cpu_chi2=float(c.final_cost), rel_diff=rel, max_abs_dt=t_err,
         cg_iterations=int(g.total_cg_iterations))
-    return launches
+    return fp32_chi2
 
 
 def phase_engine(dev) -> None:
+    """Four triggers of a 2,000-node stream, each escalated (forced) to the
+    host fp64 rung in the background and drained before the next; warmup()
+    first, which loads that rung on a thread of its own. The first
+    escalation's wall beside its rung's own total_s shows what the
+    escalation paid beyond the rung."""
     g = synthetic.circle_graph(n_nodes=2000, n_loops=1000, seed=1)
     store = native.make_store()
-    eng = SolverEngine(store, device=dev)
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, escalate_rejects=0))
+    eng = SolverEngine(store, cfg, device=dev)
+    w0 = time.perf_counter()
+    eng.warmup(2000, 1000)
+    warm_s = time.perf_counter() - w0
+    if not eng.warmup_join(timeout=300) or native_ldl._lib is None:
+        raise AssertionError("warmup did not load the host fp64 rung")
+    say("engine-warmup", warmup_s=round(warm_s, 4),
+        join_s=round(time.perf_counter() - w0, 4), host_rung_loaded=True)
     t0, dt = 1_000_000_000, 100_000_000
     order = np.argsort(g.loop_pairs[:, 0], kind="stable")
     n_added = 0
@@ -554,7 +583,8 @@ def phase_engine(dev) -> None:
                                          float(g.loop_w[k]))
         if not eng.trigger():
             raise AssertionError(f"trigger {chunk} did not fire")
-        st = eng.solve_stats[-1]
+        st = [r for r in eng.solve_stats if "trigger_wall_ms" in r][-1]
+        eng.drain()                    # the escalation lands before the next
         if not st["final_cost"] < st["initial_cost"]:
             raise AssertionError(f"trigger {chunk} did not lower the cost: "
                                  f"{st}")
@@ -568,16 +598,112 @@ def phase_engine(dev) -> None:
                       for i in range(store.node_len)])
     if not np.isfinite(poses).all():
         raise AssertionError("non-finite solved poses")
+    esc = [r for r in eng.solve_stats if r.get("background_escalation")]
+    if len(esc) != 4 or any(r.get("escalated_rung") != "fp64-cpu"
+                            for r in esc):
+        raise AssertionError(f"escalations: {esc}")
+    first = esc[0]
+    rung_ms = 1000.0 * first["rung_stats"]["total_s"]
+    say("engine-escalation", first_escalation_wall_ms=round(
+        first["escalation_wall_ms"], 3), first_rung_total_ms=round(rung_ms, 3),
+        outside_rung_ms=round(first["escalation_wall_ms"] - rung_ms, 3),
+        later_walls_ms=json.dumps([round(r["escalation_wall_ms"], 3)
+                                   for r in esc[1:]]),
+        later_rung_total_ms=json.dumps([round(1000 * r["rung_stats"]
+                                              ["total_s"], 3)
+                                        for r in esc[1:]]))
 
 
-def phase_escalation(dev, card: str) -> None:
-    """Both fp64 rungs on the phase-5 bench problem, escalation forced."""
+@contextlib.contextmanager
+def entry_points_taken():
+    """Count the kernel entry points the wrappers take, by name
+    (kpg_band_matvec_f32, ..._f64, kpg_gj_inv_f32, ...): each launch looks
+    its entry point up once on the library _kernels.load returns."""
+    taken: dict = {}
+    real = _kernels.load
+
+    class Lib:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            if name.endswith(("_f32", "_f64")):
+                taken[name] = taken.get(name, 0) + 1
+            return getattr(self._lib, name)
+
+    _kernels.load = lambda name, entries: Lib(real(name, entries))
+    try:
+        yield taken
+    finally:
+        _kernels.load = real
+
+
+def ladder_launches(res, rung: str, stats: dict, cg_cap: int = 45,
+                    shards: int = 1) -> dict:
+    """K1 and K2 launches of a device-ladder escalation: the mixed rung at
+    the caller's CG cap (its LM count from the rung statistics), then, if
+    it climbed, the fp64 rung at cap max(100, cg_cap) (the result's LM
+    count); 3 K2 per LM iteration; K1 once per shard on a mesh."""
+    mixed = stats["mixed_lm_iterations"]
+    fp64 = int(res.iterations) if rung == "fp64" else 0
+    return {"band_matvec": shards * (cg_cap * mixed
+                                     + max(100, cg_cap) * fp64),
+            "gj_inv": 3 * (mixed + fp64)}
+
+
+def by_precision(taken: dict) -> dict:
+    """{kernel: {"f32": n, "f64": n}} of entry_points_taken's counts."""
+    return {k: {p: taken.get(f"kpg_{k}_{p}", 0) for p in ("f32", "f64")}
+            for k in WRAPPERS}
+
+
+def phase_escalation(dev, card: str, fp32_chi2=None) -> None:
+    """The mixed rung on the phase-5 bench problem (fp32 K1 and K2 under an
+    fp64 assembly), then the escalation ladder on it with escalation
+    forced: the host fp64 rung ("auto"), and the device ladder ("tpu"),
+    which runs the mixed rung and climbs to the fp64 rung (K1 and K2 in
+    fp64)."""
     threads = min(8, os.cpu_count() or 1)
     torch.set_num_threads(threads)        # the host rung's CPU thread pool
     prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
+    if fp32_chi2 is None:                 # phase 5 did not run
+        fp32_chi2 = float(lm_solve(prob, **PRODUCT).final_cost)
+
+    with counted("mixed"), entry_points_taken() as taken:
+        res = lm_solve(prob, precision="mixed", **PRODUCT)
+        chi2 = float(res.final_cost)
+    check_launches("mixed", solve_launches(res, PRODUCT["max_cg_iterations"]))
+    precision = by_precision(taken)
+    if any(v["f64"] or v["f32"] != PATH_LAUNCHES["mixed"][k]
+           for k, v in precision.items()):
+        raise AssertionError(f"the mixed rung's kernels ran {precision}, "
+                             f"not all in fp32")
+    if not (within_quality(chi2, CHI2_REF)
+            and abs(chi2 - fp32_chi2) <= 5e-3 * fp32_chi2):
+        raise AssertionError(f"mixed chi^2 {chi2} vs {CHI2_REF} and the fp32 "
+                             f"solve's {fp32_chi2}")
+    if not (res.q.dtype == res.final_cost.dtype == torch.float64
+            and all(bool(torch.isfinite(v).all())
+                    for v in (res.q, res.t, res.switch))):
+        raise AssertionError(f"mixed result {res.q.dtype}, "
+                             f"{res.final_cost.dtype}, or not finite")
+    lm_solve(prob, precision="mixed", **PRODUCT)        # warm-up
+    times = timed_solves(lambda: float(lm_solve(
+        prob, precision="mixed", **PRODUCT).final_cost), reps=5)
+    say("mixed", chi2=chi2, chi2_ref=CHI2_REF, gap=f"{chi2 / CHI2_REF - 1:+.4%}",
+        fp32_chi2=fp32_chi2, rel_diff_vs_fp32=abs(chi2 - fp32_chi2)
+        / fp32_chi2, initial_cost=float(res.initial_cost),
+        lm_iterations=int(res.iterations), accepted=int(res.successful_steps),
+        cg_iterations=int(res.total_cg_iterations),
+        distress_rejects=int(res.distress_rejects),
+        launches=json.dumps(PATH_LAUNCHES["mixed"], separators=(",", ":")),
+        by_precision=json.dumps(precision, separators=(",", ":")),
+        median_ms_per_solve=float(np.median(times)),
+        all_ms=json.dumps([round(t, 3) for t in times]), card=repr(card))
+
     for backend, want in (("auto", "fp64-cpu"), ("tpu", "fp64")):
         path = f"escalation-{want}"
-        with counted(path):
+        with counted(path), entry_points_taken() as taken:
             t0 = time.perf_counter()
             res, rung, stats = lm_ops.escalate_resolve(
                 prob, PRODUCT, 0, fp64_backend=backend)
@@ -593,9 +719,19 @@ def phase_escalation(dev, card: str) -> None:
             raise AssertionError(f"{rung}: result {res.q.dtype} "
                                  f"{tuple(res.q.shape)}")
         n = PATH_LAUNCHES[path]
-        if rung == "fp64" and not all(n.values()):
-            raise AssertionError(f"the device rung did not run both kernels "
-                                 f"in fp64: {n}")
+        precision = by_precision(taken)
+        if rung == "fp64":
+            want_n = ladder_launches(res, rung, stats)
+            check_launches(path, want_n)
+            # the mixed part in fp32, the fp64 part in fp64
+            mixed_part = ladder_launches(res, "mixed", stats)
+            split = {k: {"f32": mixed_part[k],
+                         "f64": want_n[k] - mixed_part[k]} for k in want_n}
+            if precision != split:
+                raise AssertionError(f"device ladder ran {precision}, its "
+                                     f"rungs imply {split}")
+        elif any(n.values()):
+            raise AssertionError(f"the host rung launched kernels: {n}")
         say("escalation", backend=backend, rung=rung, chi2=chi2,
             chi2_ref=CHI2_REF, gap=f"{chi2 / CHI2_REF - 1:+.4%}",
             wall_s=round(wall, 4),
@@ -605,6 +741,7 @@ def phase_escalation(dev, card: str) -> None:
             accepted=int(res.successful_steps),
             cg_iterations=int(res.total_cg_iterations),
             launches=json.dumps(n, separators=(",", ":")),
+            by_precision=json.dumps(precision, separators=(",", ":")),
             torch_threads=threads, card=repr(card))
 
 
@@ -612,17 +749,20 @@ def expected_launches(rows: list, cg_cap: int = 45,
                       cg_cap_fp64: int = 100, per_factor: int = 3) -> dict:
     """K1 and K2 launches of the CLI solve that wrote `rows`: one K1 per CG
     iteration of the fixed cap and `per_factor` K2 (bcr_levels + 1) per LM
-    iteration, for the fp32 trigger solves and any device-rung re-solve; the
+    iteration, for the fp32 trigger solves and the background escalations'
+    device rungs: a "mixed" row's LM iterations at the caller's cap, and a
+    "fp64" row's at the fp64 cap after its mixed rung's (rung_stats); the
     host rung launches nothing."""
     k1 = k2 = 0
     for r in rows:
         if "trigger_wall_ms" in r:
             k1 += cg_cap * r["lm_iterations"]
-        elif r.get("escalated_rung") == "fp64":
-            k1 += cg_cap_fp64 * r["lm_iterations"]
-        else:
-            continue
-        k2 += per_factor * r["lm_iterations"]
+            k2 += per_factor * r["lm_iterations"]
+        elif r.get("escalated_rung") in ("mixed", "fp64"):
+            mixed = r["rung_stats"]["mixed_lm_iterations"]
+            fp64 = r["lm_iterations"] if r["escalated_rung"] == "fp64" else 0
+            k1 += cg_cap * mixed + cg_cap_fp64 * fp64
+            k2 += per_factor * (mixed + fp64)
     return {"band_matvec": k1, "gj_inv": k2}
 
 
@@ -721,19 +861,22 @@ def phase_four_dof(dev, card: str) -> None:
     # escalation: the host rung serves the 6-DOF family only
     with counted("escalation-4dof"):
         t0 = time.perf_counter()
-        esc, rung, _ = lm_ops.escalate_resolve(prob, kw, 0,
-                                               fp64_backend="auto")
+        esc, rung, stats = lm_ops.escalate_resolve(prob, kw, 0,
+                                                   fp64_backend="auto")
         chi2_esc = float(esc.final_cost)
         wall = time.perf_counter() - t0
     if rung != "fp64" or esc.q.dtype != torch.float64:
         raise AssertionError(f"4-DOF escalation took rung {rung!r} "
-                             f"({esc.q.dtype}), expected the device rung")
-    check_launches("escalation-4dof", solve_launches(esc, 100))
+                             f"({esc.q.dtype}), expected the device ladder")
+    check_launches("escalation-4dof", ladder_launches(esc, rung, stats))
     if not (math.isfinite(chi2_esc) and chi2_esc <= 1e-9 * chi2_0):
         raise AssertionError(f"4-DOF device rung chi^2 {chi2_esc} vs the "
                              f"initial {chi2_0}")
     say("four-dof-escalation", rung=rung, chi2=chi2_esc,
-        wall_s=round(wall, 4), lm_iterations=int(esc.iterations),
+        wall_s=round(wall, 4), mixed_s=round(stats["mixed_s"], 4),
+        mixed_lm_iterations=stats["mixed_lm_iterations"],
+        mixed_cg_iterations=stats["mixed_cg_iterations"],
+        lm_iterations=int(esc.iterations),
         cg_iterations=int(esc.total_cg_iterations),
         launches=json.dumps(PATH_LAUNCHES["escalation-4dof"],
                             separators=(",", ":")), card=repr(card))
@@ -1286,22 +1429,22 @@ def mesh_replay(dev, card: str) -> None:
 
 
 def mesh_escalation(dev, card: str, prob) -> None:
-    """Phase 14(e): the device rung on a ShardedProblem (the unmeshed rung
-    uncounted). Both run fp64 CG to its cap of 100 iterations, where two
-    runs whose sums differ only in order drift apart, hence 1e-3."""
+    """Phase 14(e): the device ladder on a ShardedProblem (the unmeshed
+    ladder uncounted), escalation forced: the mixed rung on the 4 shards,
+    then the fp64 rung sharded again. Both run fp64 CG to its cap of 100
+    iterations, where two runs whose sums differ only in order drift
+    apart, hence 1e-3."""
     want, _, _ = lm_ops.escalate_resolve(prob, PRODUCT, 0, fp64_backend="tpu")
     chi2_1 = float(want.final_cost)
     sp = shard_problem(prob, make_mesh(devices=[str(dev)] * 4))
     with counted("mesh-escalation-fp64"):
         t0 = time.perf_counter()
-        got, rung, _ = lm_ops.escalate_resolve(sp, PRODUCT, 0,
-                                               fp64_backend="tpu")
+        got, rung, stats = lm_ops.escalate_resolve(sp, PRODUCT, 0,
+                                                   fp64_backend="tpu")
         chi2 = float(got.final_cost)
         wall = time.perf_counter() - t0
-    one_dev = solve_launches(got, 100)
     check_launches("mesh-escalation-fp64",
-                   {"band_matvec": 4 * one_dev["band_matvec"],
-                    "gj_inv": one_dev["gj_inv"]})
+                   ladder_launches(got, rung, stats, shards=4))
     if not (rung == "fp64" and got.q.dtype == torch.float64
             and tuple(got.q.shape) == (prob.n_cap, 4)
             and within_quality(chi2, CHI2_REF)
@@ -1313,7 +1456,9 @@ def mesh_escalation(dev, card: str, prob) -> None:
         lm_iterations=int(got.iterations),
         cg_iterations=int(got.total_cg_iterations),
         unmeshed_cg_iterations=int(want.total_cg_iterations),
-        wall_s=round(wall, 4),
+        mixed_lm_iterations=stats["mixed_lm_iterations"],
+        mixed_cg_iterations=stats["mixed_cg_iterations"],
+        mixed_s=round(stats["mixed_s"], 4), wall_s=round(wall, 4),
         launches=json.dumps(PATH_LAUNCHES["mesh-escalation-fp64"],
                             separators=(",", ":")), card=repr(card))
 
@@ -1344,12 +1489,13 @@ def main(argv=None) -> None:
         k1 = phase_k1(dev)
     if run("k2"):
         k2 = phase_k2(dev)
+    fp32_chi2 = None
     if run("solve"):
-        phase_solve(dev, card)
+        fp32_chi2 = phase_solve(dev, card)
     if run("engine"):
         phase_engine(dev)
     if run("escalation"):
-        phase_escalation(dev, card)
+        phase_escalation(dev, card, fp32_chi2)
     with tempfile.TemporaryDirectory(prefix="kpg") as tmp:
         if run("cli-solve"):
             phase_cli_solve(tmp, card)

@@ -25,7 +25,9 @@ on the host fp64 rung (escalate_rejects=0, fp64_backend="cpu"): a
 comparison of the port with itself.
 
 Each row also carries both fp64 rungs forced on the harness problem
-(`rung_ab`), the A/B behind fp64_backend="auto"'s choice of the host rung.
+(`rung_ab`), the A/B behind fp64_backend="auto"'s choice of the host rung;
+the device rung's entry includes the mixed rung that the device ladder
+runs first.
 Prints one JSON line per instance and exits non-zero if any instance misses
 the bar.
 """
@@ -139,17 +141,25 @@ def rung_ab(name: str, device) -> dict:
     """Both fp64 rungs on the harness problem with escalation forced: the
     chi^2, its gap to HARNESS_REF and the wall time of each, by rung (the
     A/B that decides which rung fp64_backend="auto" should take on a
-    GPU)."""
+    GPU). Forced, the device ladder runs the mixed rung before its fp64
+    rung: the "fp64" row gives the mixed rung's wall (`mixed_s`) and LM
+    count beside the fp64 rung's own wall (`fp64_s`)."""
     from solve_keyframe_pose_graph_tpu_torch.ops import lm
 
     prob, kw = _harness_kw(name, device)
     out = {}
     for backend in ("cpu", "tpu"):
         t0 = time.perf_counter()
-        res, rung, _ = lm.escalate_resolve(prob, kw, 0, fp64_backend=backend)
+        res, rung, stats = lm.escalate_resolve(prob, kw, 0,
+                                               fp64_backend=backend)
         chi2 = float(res.final_cost)
-        out[rung] = {"chi2": chi2, "gap": chi2 / HARNESS_REF[name] - 1.0,
-                     "wall_s": time.perf_counter() - t0}
+        row = {"chi2": chi2, "gap": chi2 / HARNESS_REF[name] - 1.0,
+               "wall_s": time.perf_counter() - t0}
+        if "mixed_s" in stats:
+            row.update(mixed_s=stats["mixed_s"],
+                       mixed_lm_iterations=stats["mixed_lm_iterations"],
+                       fp64_s=stats["total_s"] - stats["mixed_s"])
+        out[rung] = row
     return out
 
 

@@ -1,7 +1,8 @@
-"""Levenberg-Marquardt trust region and the fp64 escalation ladder
+"""Levenberg-Marquardt trust region and the escalation ladder
 (counterpart of solve_keyframe_pose_graph_tpu/ops/lm.py: _lm_setup,
 lm_solve, lm_solve_adaptive, needs_escalation, escalate_resolve,
-fp64_resolve, solve_problem, solve_problem_adaptive, cfg_lm_kwargs).
+mixed_resolve, fp64_resolve, solve_problem, solve_problem_adaptive,
+cfg_lm_kwargs).
 
 Ceres' LevenbergMarquardtStrategy + TrustRegionMinimizer semantics, as in the
 reference: jacobi column scaling, the LM diagonal clamped to [1e-6, 1e32],
@@ -16,41 +17,51 @@ preconditioner. The residual family is 6-DOF (gn.assemble_t, the product
 path) or 4-DOF (gn.assemble_4dof_t, autodiff Jacobians, loop edges always
 switched).
 
+precision="mixed" on an fp32 problem (the reference's lm.py:168-199) runs
+the assembly, the cost, the parameter state q, t, s and the accept/reject
+and convergence arithmetic in fp64 on an fp64 copy of the problem, and
+everything between (Schur reduction, factorizations, preconditioner, CG)
+in fp32 on the problem itself: the blocks are demoted before the reduction
+and the step promoted before it is applied. The radius and the decrease
+factor stay in the problem's dtype, as in the reference. On an fp64
+problem "mixed" is "native".
+
 On a CUDA problem every reduced matvec's band part runs kernel K1 and every
 BCR inverse kernel K2: the wrappers dispatch on the tensors' device, which
 replaces the reference's backend switch (lm.py:172-177). The LM loop reads
 its `done` flag on the host once per iteration, so a solve synchronises at
 most max_iterations + 1 times; CG never synchronises. The loop body reaches
-the Problem only through an ops object: DeviceOps for a Problem, and the
-one a problem of another layout brings (parallel.ShardedProblem.lm_ops,
-whose vectors are per-shard blocks; the reference runs the same lm_solve
-on a GSPMD-sharded Problem). The rungs reach a problem's layout only
-through its n_shards, gathered() and reshard(), so this module imports
-nothing of parallel/.
+the Problem only through an ops object, which also holds the precision's
+two copies: DeviceOps for a Problem, and the one a problem of another
+layout brings (parallel.ShardedProblem.lm_ops, whose vectors are per-shard
+blocks; the reference runs the same lm_solve on a GSPMD-sharded Problem).
+The rungs reach a problem's layout only through its n_shards, gathered(),
+reshard() and astype(), so this module imports nothing of parallel/.
 
-Escalation ladder. A distressed fp32 solve (needs_escalation) is re-solved
-in fp64 from the same initial guesses on one of two rungs, chosen by
-SolverConfig.fp64_backend as in the reference:
+Escalation ladder (the reference's lm.py:900-952). A distressed fp32 solve
+(needs_escalation) is re-solved from the same initial guesses on the rungs
+that SolverConfig.fp64_backend selects, as in the reference:
   * "fp64-cpu", the exact-step host rung (solver/cpu_rung.py): "auto"
-    (the default) and "cpu" take it whenever it is available;
-  * "fp64", the device rung (fp64_resolve): lm_solve in float64 on the
-    problem's own device, repacked to the smallest 1024-multiple capacities
-    covering the live lengths (the reference's repack), with near-exact CG
-    forcing (cg_tolerance <= 1e-5, max_cg_iterations >= 100), padded back
-    to the caller's capacities. On the card it runs K1 and K2 in fp64 (the
-    TPU's Pallas kernels were fp32-only). The config value
-    fp64_backend="tpu" names this device rung in the port; "auto" falls
-    back to it when the host rung is unavailable or fails, and logs the
-    failure at WARNING.
-The device rung takes the caller's dispatch_lock around each LM iteration,
+    (the default) and "cpu" take it whenever it is available for the
+    residual family (6-DOF switched only);
+  * otherwise the device ladder: first "mixed" (mixed_resolve, the solve
+    again with precision="mixed" at the caller's capacities and forcing;
+    K1 and K2 in fp32), kept when it no longer shows distress; then "fp64"
+    (fp64_resolve: lm_solve in float64 on the problem's own device,
+    repacked to the smallest 1024-multiple capacities covering the live
+    lengths, with near-exact CG forcing (cg_tolerance <= 1e-5,
+    max_cg_iterations >= 100), padded back to the caller's capacities; on
+    the card K1 and K2 run in fp64). fp64_backend="tpu" (the reference's
+    name) always takes the device ladder; "auto" falls back to it when the
+    host rung is unavailable or fails, and logs the failure at WARNING.
+The device rungs take the caller's dispatch_lock around each LM iteration,
 so a streaming engine's trigger solves wait at most one iteration.
 
-Not ported: the AOT executable cache, outer_unroll, freeze_preconditioner,
-the mixed-precision rung and lm_solve_chunked (they exist for the TPU's
-emulated fp64 and its ~100 s dispatch limit), and the TPU-only loop_impl /
-band_impl / tile_k / matvec_impl variants. The host rung serves the 6-DOF
-switched family only, so a 4-DOF escalation under "auto" takes the device
-rung.
+Not ported: the AOT executable cache (eager PyTorch compiles nothing),
+outer_unroll (XLA only), freeze_preconditioner (a measured rejection),
+lm_solve_chunked (lm_solve already runs one LM iteration per dispatch under
+the lock, which is what chunking buys the reference) and the TPU-only
+loop_impl / band_impl / tile_k / matvec_impl variants.
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ from solve_keyframe_pose_graph_tpu_torch.ops import pcg as pcg_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import se3
 from solve_keyframe_pose_graph_tpu_torch.ops import smallinv
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
-    Problem, live_lengths, problem_astype, repack_problem,
+    Problem, live_lengths, repack_problem,
 )
 
 MIN_LM_DIAGONAL = 1e-6
@@ -83,6 +94,7 @@ PRECONDITIONERS = ("band", "band+coarse", "band*coarse", "jacobi",
                    "identity")
 RESIDUAL_MODES = ("6dof", "4dof")
 FP64_BACKENDS = ("auto", "cpu", "tpu")
+PRECISIONS = ("native", "mixed")
 
 log = logging.getLogger(__name__)
 
@@ -169,13 +181,21 @@ class DeviceOps:
     family's assembly, the scaled and damped Schur reduction, the reduced
     matvec, the preconditioner, the switch recovery and the step.
     parallel/sharded_lm.ShardedOps has the same methods over a mesh, so
-    _lm_setup's loop body serves both."""
+    _lm_setup's loop body serves both.
+
+    With precision="mixed" on a problem of a lower dtype, `hi` is its fp64
+    copy: the assembly, the parameter state and the step run on it, and
+    lo() demotes the assembled blocks to the problem's dtype for the
+    linear algebra. Otherwise `hi` is the problem and lo() returns its
+    argument."""
 
     def __init__(self, problem: Problem, *, preconditioner: str,
                  residual_mode: str, use_switch: bool, bcr_levels,
-                 coarse_group: int):
+                 coarse_group: int, precision: str = "native"):
         self.problem = problem
         self.dtype, self.device = problem.dtype, problem.device
+        self.mixed = precision == "mixed" and self.dtype != torch.float64
+        self.hi = problem.astype(torch.float64) if self.mixed else problem
         self.preconditioner = preconditioner
         self.residual_mode = residual_mode
         self.use_switch = use_switch
@@ -183,14 +203,21 @@ class DeviceOps:
         self.coarse_group = coarse_group
 
     def initial(self):
-        p = self.problem
+        p = self.hi
         return p.q, p.t, p.switch
 
     def assemble(self, q, t, s) -> gn_ops.GNBlocksT:
         if self.residual_mode == "4dof":      # use_switch does not apply
-            return gn_ops.assemble_4dof_t(self.problem, q, t, s)
-        return gn_ops.assemble_t(self.problem, q, t, s,
+            return gn_ops.assemble_4dof_t(self.hi, q, t, s)
+        return gn_ops.assemble_t(self.hi, q, t, s,
                                  use_switch=self.use_switch)
+
+    def lo(self, blocks: gn_ops.GNBlocksT) -> gn_ops.GNBlocksT:
+        if not self.mixed:
+            return blocks
+        return gn_ops.GNBlocksT(**{
+            f.name: getattr(blocks, f.name).to(self.dtype)
+            for f in dataclasses.fields(gn_ops.GNBlocksT)})
 
     def reduce(self, blocks: gn_ops.GNBlocksT, radius):
         scale_n, scale_s, lm_n, lm_s = jacobi_scales(blocks.D, blocks.ds,
@@ -237,7 +264,7 @@ class DeviceOps:
         return gn_ops.recover_switches_t(red, self.problem, x_n)
 
     def apply_step(self, q, t, s, dx_n, dx_s, renormalize: bool):
-        return _apply_step(q, t, s, dx_n, dx_s, self.problem.free_mask,
+        return _apply_step(q, t, s, dx_n, dx_s, self.hi.free_mask,
                            renormalize)
 
     def result(self, q, t, s):
@@ -268,8 +295,12 @@ def _lm_setup(
     coarse_group,
     cg_warm_iters: int,
     cg_warm_mult: float,
+    precision: str,
 ):
     """(ops, init_state, body) of the LM loop."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}; use one of "
+                         f"{PRECISIONS}")
     if preconditioner not in PRECONDITIONERS:
         raise ValueError(f"preconditioner={preconditioner!r}; use one of "
                          f"{PRECONDITIONERS}")
@@ -278,7 +309,8 @@ def _lm_setup(
                          f"{RESIDUAL_MODES}")
     if coarse_group is None:
         coarse_group = coarse_ops.auto_coarse_group(problem.n_cap)
-    ops = _make_ops(problem, preconditioner=preconditioner,
+    ops = _make_ops(problem, precision=precision,
+                    preconditioner=preconditioner,
                     residual_mode=residual_mode, use_switch=use_switch,
                     bcr_levels=bcr_levels, coarse_group=coarse_group)
     dt, dev = ops.dtype, ops.device
@@ -295,7 +327,7 @@ def _lm_setup(
     cost0 = blocks0.cost
 
     def body(state: _LoopState) -> _LoopState:
-        blocks = state.blocks
+        blocks = ops.lo(state.blocks)       # the linear algebra's dtype
         red, scale_n, scale_s, lm_n, lm_s = ops.reduce(blocks, state.radius)
         g_n_hat = blocks.g_n * scale_n                         # (6, Nc)
         mv = ops.matvec(red)
@@ -318,8 +350,9 @@ def _lm_setup(
         gTdx = _dot(g_n_hat, dxh_n) - _dot(bs, dxh_s)
         model_cost_change = -gTdx - 0.5 * (quad_S - quad_lm)
 
-        dx_n = (dxh_n * scale_n).T
-        dx_s = dxh_s * scale_s
+        # the step is promoted to the parameter state's dtype
+        dx_n = (dxh_n * scale_n).T.to(state.q.dtype)
+        dx_s = (dxh_s * scale_s).to(state.s.dtype)
         q_new, t_new, s_new = ops.apply_step(
             state.q, state.t, state.s, dx_n, dx_s, renormalize)
         # speculative assembly at the candidate: its cost is the candidate
@@ -327,12 +360,14 @@ def _lm_setup(
         blocks_new = ops.assemble(q_new, t_new, s_new)
         new_cost = blocks_new.cost
 
+        # accept / reject in the cost's dtype, the model cost change
+        # promoted; the radius stays in the problem's dtype
         cost_change = state.cost - new_cost
         rho = cost_change / torch.where(model_cost_change <= 0, 1.0,
                                         model_cost_change)
         accept = (model_cost_change > 0) & (rho > MIN_RELATIVE_DECREASE)
 
-        shrink = 1.0 - (2.0 * rho - 1.0) ** 3
+        shrink = (1.0 - (2.0 * rho - 1.0) ** 3).to(state.radius.dtype)
         radius_acc = torch.clamp(
             state.radius / torch.clamp(shrink, min=1.0 / 3.0), max=MAX_RADIUS)
         radius = torch.where(accept, radius_acc,
@@ -356,7 +391,7 @@ def _lm_setup(
             q=torch.where(accept, q_new, state.q),
             t=torch.where(accept, t_new, state.t),
             s=torch.where(accept, s_new, state.s),
-            blocks=_select_blocks(accept, blocks_new, blocks),
+            blocks=_select_blocks(accept, blocks_new, state.blocks),
             cost=torch.where(accept, new_cost, state.cost),
             radius=radius, decrease_factor=decrease_factor, k=state.k + 1,
             accepted=state.accepted + accept.to(torch.int32),
@@ -400,16 +435,19 @@ def lm_solve(
     coarse_group: int | None = None,  # None = coarse.auto_coarse_group
     cg_warm_iters: int = 0,         # first K LM iterations use a
     cg_warm_mult: float = 3.0,      # cg_warm_mult-times looser forcing
-    precision: str = "native",      # only the problem's own dtype
+    precision: str = "native",      # "native": the problem's dtype
+                                    # throughout; "mixed": fp64 assembly,
+                                    # cost and state around fp32 CG
     dispatch_lock=None,             # held around the setup and each LM
                                     # iteration (to its host sync)
 ) -> LMResult:
-    """One full LM solve of `problem` on its own device and dtype. A
+    """One full LM solve of `problem` on its own device: in its own dtype
+    (precision="native"), or with the assembly, cost and parameter state
+    in fp64 around a linear algebra in its dtype (precision="mixed", see
+    the module note; the result's q, t, switch and costs are then fp64). A
     parallel.ShardedProblem is solved over its mesh (parallel/
     sharded_lm.py), with the same mathematics; its result's q, t and switch
     are gathered on the mesh's first device."""
-    if precision != "native":
-        raise ValueError(f"precision={precision!r} is not ported")
     # BCR and the coarse solve rely on full-fp32 batched products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -426,7 +464,7 @@ def lm_solve(
             residual_mode=residual_mode, use_switch=use_switch,
             bcr_levels=bcr_levels, coarse_group=coarse_group,
             cg_warm_iters=cg_warm_iters,
-            cg_warm_mult=cg_warm_mult)
+            cg_warm_mult=cg_warm_mult, precision=precision)
         done = bool(state.done)
     cost0 = state.cost
     for _ in range(max_iterations):
@@ -460,9 +498,10 @@ def needs_escalation(res: LMResult, escalate_rejects: int) -> bool:
 def lm_solve_adaptive(problem: Problem, *, escalate_rejects: int = 3,
                       fp64_backend: str = "auto", dispatch_lock=None,
                       **lm_kw) -> tuple[LMResult, object]:
-    """lm_solve, then the escalation ladder when the solve shows the fp32
-    distress signature (needs_escalation). Returns (result, escalated):
-    False, or the rung that produced the result ("fp64-cpu" or "fp64")."""
+    """lm_solve, then the escalation ladder (escalate_resolve) when the
+    solve shows the fp32 distress signature (needs_escalation). Returns
+    (result, escalated): False, or the rung that produced the result
+    ("mixed", "fp64-cpu" or "fp64")."""
     res = lm_solve(problem, dispatch_lock=dispatch_lock, **lm_kw)
     if problem.dtype == torch.float64:
         return res, False
@@ -477,18 +516,20 @@ def lm_solve_adaptive(problem: Problem, *, escalate_rejects: int = 3,
 def escalate_resolve(problem: Problem, lm_kw: dict, escalate_rejects: int,
                      *, dispatch_lock=None, fp64_backend: str = "auto"
                      ) -> tuple[LMResult, str, dict]:
-    """Re-solve a distressed problem in fp64 from its initial guesses.
+    """Re-solve a distressed problem from its initial guesses on the
+    escalation ladder (see the module note).
 
     fp64_backend "auto" and "cpu" take the exact-step host rung when it is
     available for this residual family ("cpu" raises when it is not, or
-    when it fails); "auto" otherwise, and "tpu" always, take the device
-    rung. Returns (result padded to the caller's capacities, rung, rung
-    statistics): rung "fp64-cpu" or "fp64", statistics a dict with at
-    least `total_s`, the rung's wall time. escalate_rejects is unused by
-    the two-rung ladder (the reference's mixed rung consulted it) and kept
-    for its signature. A parallel.ShardedProblem takes the host rung
-    gathered, and the device rung sharded over its mesh."""
-    del escalate_rejects
+    when it fails). "auto" otherwise, and "tpu" always, take the device
+    ladder: the mixed rung, kept unless it still needs escalation
+    (needs_escalation with escalate_rejects), then the device fp64 rung.
+    Returns (result at the caller's capacities, rung, rung statistics):
+    rung "fp64-cpu", "mixed" or "fp64"; the statistics hold at least
+    `total_s`, the ladder's wall time, and on the device ladder `mixed_s`,
+    `mixed_lm_iterations` and `mixed_cg_iterations` of the mixed rung. A
+    parallel.ShardedProblem takes the host rung gathered, and the device
+    rungs sharded over its mesh."""
     if fp64_backend not in FP64_BACKENDS:
         raise ValueError(f"fp64_backend={fp64_backend!r}; use one of "
                          f"{FP64_BACKENDS}")
@@ -503,15 +544,34 @@ def escalate_resolve(problem: Problem, lm_kw: dict, escalate_rejects: int,
                 if fp64_backend == "cpu":
                     raise
                 log.warning("host fp64 rung failed; re-solving on the "
-                            "device rung", exc_info=True)
+                            "device ladder", exc_info=True)
         elif fp64_backend == "cpu":
             raise RuntimeError(
                 "fp64_backend='cpu' requested but the host fp64 rung is "
                 "unavailable (needs libkpg_ldl.so, scipy and the 6dof+switch "
                 "residual family)")
     t0 = time.perf_counter()
-    res = fp64_resolve(problem, lm_kw, dispatch_lock=dispatch_lock)
-    return res, "fp64", {"total_s": time.perf_counter() - t0}
+    res = mixed_resolve(problem, lm_kw, dispatch_lock=dispatch_lock)
+    stats = {"mixed_lm_iterations": int(res.iterations),
+             "mixed_cg_iterations": int(res.total_cg_iterations)}
+    stats["mixed_s"] = time.perf_counter() - t0
+    rung = "mixed"
+    if needs_escalation(res, escalate_rejects):
+        res, rung = fp64_resolve(problem, lm_kw,
+                                 dispatch_lock=dispatch_lock), "fp64"
+    stats["total_s"] = time.perf_counter() - t0
+    return res, rung, stats
+
+
+def mixed_resolve(problem: Problem, lm_kw: dict, *,
+                  dispatch_lock=None) -> LMResult:
+    """The mixed rung: the solve again with precision="mixed" (fp64
+    assembly, cost and parameter state; fp32 reduction, factorizations and
+    CG, so K1 and K2 in fp32 on the card), at the caller's capacities and
+    CG forcing, as the reference's lm.py:955-988. It takes dispatch_lock
+    around each LM iteration, as lm_solve does."""
+    return lm_solve(problem, dispatch_lock=dispatch_lock,
+                    **dict(lm_kw, precision="mixed"))
 
 
 def fp64_resolve(problem: Problem, lm_kw: dict, *,
@@ -541,7 +601,7 @@ def fp64_resolve(problem: Problem, lm_kw: dict, *,
     n_len, e_len = live_lengths(whole)
     small = repack_problem(whole, n_len, e_len,
                            granularity=math.lcm(1024, problem.n_shards))
-    small64 = problem.reshard(problem_astype(small, torch.float64))
+    small64 = problem.reshard(small.astype(torch.float64))
     res = lm_solve(small64, dispatch_lock=dispatch_lock, **kw64)
     if small.n_cap != whole.n_cap or small.e_cap != whole.e_cap:
         def pad(full, part):

@@ -100,6 +100,10 @@ class Shards:
     def contiguous(self) -> "Shards":
         return Shards(p.contiguous() for p in self.parts)
 
+    def to(self, dtype: torch.dtype) -> "Shards":
+        """Each shard cast to `dtype`, on its own device."""
+        return Shards(p.to(dtype) for p in self.parts)
+
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         if func is torch.sum and len(args) == 1 and not kwargs:

@@ -111,16 +111,19 @@ def _shard(red: gn_ops.ReducedSystemT, i: int) -> gn_ops.ReducedSystemT:
 class ShardedOps(lm_ops.DeviceOps):
     """lm.DeviceOps over a ShardedProblem's mesh: node vectors are Shards of
     (..., nl) blocks (poses (nl, 4) and (nl, 3)), edge vectors Shards of
-    the shards' edge blocks."""
+    the shards' edge blocks. With precision="mixed", `hi` is the split
+    with fp64 sub-Problems: the assembly runs on them and its halo and
+    ghost partials are summed in fp64."""
 
     def __init__(self, problem: ShardedProblem, **kw):
         super().__init__(problem, **kw)
         self.sp = problem
-        self.free = self._owned("free_mask", -1)
+        self.free = self._owned(self.hi, "free_mask", -1)
 
-    def _owned(self, name: str, dim: int) -> Shards:
-        return Shards(self.sp.owned(i, getattr(s, name), dim)
-                      for i, s in enumerate(self.sp.subs))
+    @staticmethod
+    def _owned(sp: ShardedProblem, name: str, dim: int) -> Shards:
+        return Shards(sp.owned(i, getattr(s, name), dim)
+                      for i, s in enumerate(sp.subs))
 
     def _local(self, x: Shards, dim: int, first=None) -> list:
         """Each shard's local-layout copy of a node vector: [left halo (shard
@@ -156,11 +159,12 @@ class ShardedOps(lm_ops.DeviceOps):
         return Shards(out)
 
     def initial(self):
-        return (self._owned("q", 0), self._owned("t", 0),
-                Shards(s.switch for s in self.sp.subs))
+        hi = self.hi
+        return (self._owned(hi, "q", 0), self._owned(hi, "t", 0),
+                Shards(s.switch for s in hi.subs))
 
     def assemble(self, q: Shards, t: Shards, s: Shards) -> gn_ops.GNBlocksT:
-        sp, F = self.sp, self.sp.fanout
+        sp, F = self.hi, self.hi.fanout
         ql = self._local(q, 0, first=sp.subs[0].q[:F])   # identity poses
         tl = self._local(t, 0, first=sp.subs[0].t[:F])
         blk = []

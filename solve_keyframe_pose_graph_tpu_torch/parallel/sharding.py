@@ -236,7 +236,7 @@ class ShardedProblem:
         return x.narrow(dim if dim >= 0 else x.dim() + dim, F, nl)
 
     # the layout protocol that ops/lm.py reads (solver/problem.Problem has
-    # the single-device answers)
+    # the single-device answers): n_shards, gathered, reshard, astype
     @property
     def n_shards(self) -> int:
         return len(self.mesh)
@@ -248,6 +248,14 @@ class ShardedProblem:
     def reshard(self, p: Problem) -> ShardedProblem:
         """Another Problem split over this mesh."""
         return shard_problem(p, self.mesh)
+
+    def astype(self, dtype: torch.dtype) -> ShardedProblem:
+        """The same split with each sub-Problem's float fields cast to
+        `dtype` (the same halo and ghost layout)."""
+        return dataclasses.replace(
+            self, subs=tuple(s.astype(dtype) for s in self.subs),
+            node_mask=tuple(m.to(dtype) for m in self.node_mask),
+            prior_mask=self.prior_mask.to(dtype), _topology={})
 
     def lm_ops(self, **kw) -> ShardedOps:
         """The LM loop's operations over the mesh (lm.DeviceOps' methods)."""

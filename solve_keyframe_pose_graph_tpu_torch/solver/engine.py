@@ -40,9 +40,11 @@ As in the reference, the mesh path takes the full problem build, shards it
 (parallel.shard_problem) and writes back from the gathered result.
 
 Left out: the reference's XLA compile-stall machinery (bucket ladder
-warmup, bucket cover, sticky tile_k, CPU-rung warm): eager PyTorch compiles
-nothing per shape, so warmup() builds the two kernels and primes one solve
-at the first bucket.
+warmup, bucket cover, sticky tile_k, the host rung's per-bucket traces):
+eager PyTorch compiles nothing per shape, so warmup() builds the two
+kernels and primes one solve at the first bucket, and, on a thread of its
+own, loads the host fp64 rung (the native LDL^T library, built on demand,
+and scipy) when the config can escalate to it.
 """
 
 from __future__ import annotations
@@ -179,6 +181,7 @@ class SolverEngine:
         # in-flight background escalated re-solve; joined by drain()
         self._bg_thread: Optional[threading.Thread] = None
         self._warmup_thread: Optional[threading.Thread] = None
+        self._host_rung_thread: Optional[threading.Thread] = None
         # a kernel or device failure on a background thread, raised on the
         # next collect / drain / warmup_join
         self._bg_error: Optional[BaseException] = None
@@ -392,7 +395,8 @@ class SolverEngine:
                       build: dict) -> None:
         """Escalate a distressed result if the config says so, then write
         back. `res` is a host result (_to_host); `build` the problem build's
-        entries of the trigger's solve_stats row."""
+        entries of the trigger's solve_stats row, to which an inline
+        escalation adds its rung_stats."""
         escalated = False
         solver = self.config.solver
         if (solver.adaptive_fp64 and solver.dtype != "float64"
@@ -405,10 +409,12 @@ class SolverEngine:
                     escalated = "pending"
             else:
                 with self.timer.phase("fp64_escalation"):
-                    res, escalated, _ = lm_ops.escalate_resolve(
+                    res, escalated, rung_stats = lm_ops.escalate_resolve(
                         problem, kw, k, dispatch_lock=self._device_lock,
                         fp64_backend=solver.fp64_backend)
                     res = _to_host(res, node_len, edge_len)
+                # the row's counts are the rung's; these are the ladder's
+                build = dict(build, rung_stats=rung_stats)
         # the stats append and the poses change together under state_lock:
         # the stats length is part of the Composer's version stamp
         self.last_result = res
@@ -717,12 +723,17 @@ class SolverEngine:
         PyTorch compiles nothing per shape, so there is no bucket ladder;
         max_nodes and max_edges are checked against the capacity ceilings.
         background=True runs it on a daemon thread (warmup_join waits).
+        When the config can escalate to the host fp64 rung (adaptive_fp64
+        on, fp64_backend not "tpu"), that rung is loaded on a thread of its
+        own meanwhile (the reference's engine.py:911-937), so that the
+        first escalation does not pay for it; warmup_join waits for it too.
         Returns the number of buckets primed (1)."""
         cap = self.config.capacity
         if max_nodes > cap.max_nodes or max_edges > cap.max_edges:
             raise ValueError(
                 f"warmup({max_nodes}, {max_edges}) exceeds the capacity "
                 f"ceilings ({cap.max_nodes}, {cap.max_edges})")
+        self._start_host_rung_warm()
         if not background:
             self._warm_first_bucket()
             return 1
@@ -734,15 +745,39 @@ class SolverEngine:
         return 1
 
     def warmup_join(self, timeout: Optional[float] = None) -> bool:
-        """Wait for a background warmup; True once it has finished. Raises
-        what the warmup raised."""
-        t = self._warmup_thread
-        if t is None:
-            return True
-        t.join(timeout)
-        if not t.is_alive():
+        """Wait for a background warmup and the host rung's load; True once
+        both have finished. Raises what the device warmup raised."""
+        end = None if timeout is None else time.monotonic() + timeout
+        alive = False
+        for t in (self._warmup_thread, self._host_rung_thread):
+            if t is not None:
+                t.join(None if end is None
+                       else max(0.0, end - time.monotonic()))
+                alive = alive or t.is_alive()
+        if not alive:
             self._raise_bg_error()
-        return not t.is_alive()
+        return not alive
+
+    def _start_host_rung_warm(self) -> None:
+        solver, res_cfg = self.config.solver, self.config.residual
+        if not solver.adaptive_fp64 or solver.fp64_backend == "tpu":
+            return
+        gate = {"residual_mode": res_cfg.mode,
+                "use_switch": res_cfg.use_switch_constraints}
+        t = threading.Thread(target=self._warm_host_rung, args=(gate,),
+                             name="kpg-host-rung-warmup", daemon=True)
+        self._host_rung_thread = t
+        t.start()
+
+    @staticmethod
+    def _warm_host_rung(gate: dict) -> None:
+        """Best effort: a rung that cannot load is reported by the first
+        escalation that needs it."""
+        from solve_keyframe_pose_graph_tpu_torch.solver import cpu_rung
+        try:
+            cpu_rung.available(gate)
+        except Exception:
+            log.warning("loading the host fp64 rung failed", exc_info=True)
 
     def _warm_in_background(self, stream_ctx) -> None:
         try:

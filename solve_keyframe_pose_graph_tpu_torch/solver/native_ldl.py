@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,9 +28,17 @@ c_ip = ctypes.POINTER(c_i64)
 c_dp = ctypes.POINTER(ctypes.c_double)
 
 _lib = None
+# one build and load at a time: the engine's warm-up thread and a first
+# escalation may both ask for the library of a fresh tree
+_load_lock = threading.Lock()
 
 
 def load_library(auto_build: bool = True):
+    with _load_lock:
+        return _load(auto_build)
+
+
+def _load(auto_build: bool):
     global _lib
     if _lib is not None:
         return _lib

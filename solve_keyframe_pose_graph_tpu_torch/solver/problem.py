@@ -100,6 +100,13 @@ class Problem:
         """Another Problem laid out as this one is: on one device."""
         return p
 
+    def astype(self, dtype: torch.dtype) -> Problem:
+        """problem_astype, keeping the loop rows' grouping once built."""
+        p = problem_astype(self, dtype)
+        if "loop_rows_by_node" in self.__dict__:
+            p.loop_rows_by_node = self.loop_rows_by_node
+        return p
+
     @functools.cached_property
     def loop_rows_by_node(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(order, counts) for the loop-edge row scatter of ops/gn.py

@@ -496,3 +496,107 @@ def test_anchors_come_from_the_solved_nodes_under_concurrent_ingest():
                                rtol=1e-12, atol=1e-30)
     np.testing.assert_array_equal(engines[0]._opt_t[:100],
                                   engines[1]._opt_t[:100])
+
+
+def test_initial_guess_table_fuzz_vs_literal_port():
+    """tests/test_engine.py's fuzz through the port: >= 100 triggers of 60
+    random kidnap / loop schedules (3+ worlds, merges, multi-hop world
+    inference), at each of which the port's vectorized 4-case table
+    (_set_initial_guesses) equals the literal per-node port of the
+    reference loop (test_engine._initial_guesses_literal) bit for bit.
+    The table reads the solved state, not how well it was solved, so the
+    solves are one LM step of a few Jacobi-preconditioned CG iterations,
+    which keeps the 200-odd CPU solves short."""
+    from test_engine import _initial_guesses_literal
+
+    cfg = _config()
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, max_lm_iterations=1, max_cg_iterations=4,
+        preconditioner="jacobi"))
+    rng = np.random.default_rng(1234)
+    n_checked = 0
+    for trial in range(60):
+        store = GraphStore()
+        eng = SolverEngine(store, cfg, device="cpu")
+
+        orig_guesses = eng._set_initial_guesses
+
+        def checked_guesses(node_len, node_worlds, eng=eng,
+                            orig_guesses=orig_guesses):
+            ql, tl = _initial_guesses_literal(eng, node_len, node_worlds)
+            orig_guesses(node_len, node_worlds)
+            np.testing.assert_array_equal(eng._opt_q[:node_len], ql)
+            np.testing.assert_array_equal(eng._opt_t[:node_len], tl)
+            nonlocal n_checked
+            n_checked += 1
+
+        eng._set_initial_guesses = checked_guesses
+
+        t = T0
+        kidnapped = False
+        i = 0
+        n_target = int(rng.integers(30, 80))
+        while i < n_target:
+            r = rng.random()
+            if r < 0.08 and i > 8 and not kidnapped:
+                store.kidnap_indicator(t, "kidnapped")
+                kidnapped = True
+                t += S
+                continue
+            if kidnapped and r < 0.5:
+                store.kidnap_indicator(t, "unkidnapped")
+                kidnapped = False
+                t += S
+                continue
+            yaw = rng.normal() * 0.2
+            store.add_node(t, yaw_quat(yaw),
+                           [float(i), rng.normal() * 0.2, 0.0])
+            if (not kidnapped and r > 0.85 and store.node_len > 10):
+                j = int(rng.integers(0, store.node_len - 5))
+                store.add_loop_edge(
+                    t, store.node_timestamp(j), nse3.quat_identity(),
+                    np.asarray(store.node_pose(store.node_len - 1)[1])
+                    - np.asarray(store.node_pose(j)[1]), 1.0)
+                eng.trigger()
+            t += S
+            i += 1
+    assert n_checked >= 100, n_checked
+
+
+def test_capacity_ceiling_enforced():
+    """tests/test_engine.py's check: CapacityConfig.max_nodes / max_edges
+    are hard ceilings at trigger time (the reference's static 30k arrays,
+    PoseGraphSLAM.cpp:17-25)."""
+    cfg = dataclasses.replace(_config(), capacity=tconfig.CapacityConfig(
+        initial_nodes=16, initial_edges=8, max_nodes=32, max_edges=32))
+    store = GraphStore()
+    eng = SolverEngine(store, cfg, device="cpu")
+    for i in range(40):
+        store.add_node(T0 + i * S, nse3.quat_identity(), [float(i), 0, 0])
+    store.add_loop_edge(T0 + 39 * S, T0, nse3.quat_identity(),
+                        [39.0, 0, 0], 1.0)
+    with pytest.raises(RuntimeError, match="capacity ceiling"):
+        eng.trigger()
+
+
+@pytest.mark.parametrize("adaptive,backend,loads", [
+    (True, "auto", True), (True, "tpu", False), (False, "auto", False)])
+def test_warmup_primes_the_host_rung(monkeypatch, adaptive, backend, loads):
+    """warmup loads the host fp64 rung (the native LDL^T library and
+    scipy) on a thread of its own when the config can escalate to it, as
+    the reference's warmup primes its rung; not under fp64_backend="tpu"
+    or without the ladder."""
+    from solve_keyframe_pose_graph_tpu_torch.solver import cpu_rung
+    from solve_keyframe_pose_graph_tpu_torch.solver import native_ldl
+
+    if not cpu_rung.available():
+        pytest.skip("host fp64 rung unavailable (libkpg_ldl.so / scipy)")
+    monkeypatch.setattr(native_ldl, "_lib", None)
+    cfg = _config()
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, adaptive_fp64=adaptive, fp64_backend=backend))
+    eng = SolverEngine(GraphStore(), cfg, device="cpu")
+    assert eng.warmup(128, 32) == 1
+    assert eng.warmup_join(timeout=120)
+    assert (eng._host_rung_thread is not None) is loads
+    assert (native_ldl._lib is not None) is loads

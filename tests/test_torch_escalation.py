@@ -3,10 +3,10 @@
 The same numpy-seeded problems go through the reference's and the port's
 host fp64 rung (exact steps: chi^2 to 1e-9 relative, poses to 1e-8) and
 device fp64 rung (with exact CG forcing: chi^2 to 1e-9, poses to 1e-8; at
-the rung's own forcing chi^2 to 1e-6). The reference's device ladder runs
-its mixed-precision rung first, which the port does not carry; with
-escalation forced it then lands on fp64_resolve, which is what the port's
-device rung is held against."""
+the rung's own forcing chi^2 to 1e-6). Both device ladders run the mixed
+rung first; with escalation forced they then land on fp64_resolve, which
+is what the port's device rung is held against here (the mixed rung and
+the ladder's labels: tests/test_torch_mixed.py)."""
 
 import numpy as np
 import pytest
@@ -109,7 +109,8 @@ def test_escalate_resolve_host_rung_matches_reference(rungs_ready, backend):
 
 
 def test_escalate_resolve_device_rung_matches_reference(monkeypatch):
-    """fp64_backend="tpu" is the device rung in the port: lm_solve in fp64
+    """fp64_backend="tpu" is the device ladder in the port: the mixed rung
+    at the caller's forcing, then (escalation forced) lm_solve in fp64
     on the problem's device, repacked as the reference repacks (1024-
     multiples covering the live lengths), near-exact CG. Held against the
     reference's fp64_resolve on a problem that fits one 1024 block, so
@@ -138,9 +139,13 @@ def test_escalate_resolve_device_rung_matches_reference(monkeypatch):
         assert rung == "fp64" and stats["total_s"] > 0
         assert got.q.dtype == torch.float64
         runs.append(got)
-    assert (seen[0]["cg_tolerance"], seen[0]["max_cg_iterations"]) == \
+    mixed = [k for k in seen if k.get("precision") == "mixed"]
+    fp64 = [k for k in seen if k.get("precision") != "mixed"]
+    assert [(k["cg_tolerance"], k["max_cg_iterations"]) for k in mixed] == \
+        [(1e-2, 45), (1e-12, 45)]
+    assert (fp64[0]["cg_tolerance"], fp64[0]["max_cg_iterations"]) == \
         (1e-5, 100)
-    assert seen[1]["cg_tolerance"] == 1e-12
+    assert fp64[1]["cg_tolerance"] == 1e-12
     forced, got = runs
     assert int(got.successful_steps) == int(ref.successful_steps)
     np.testing.assert_allclose(float(got.final_cost), float(ref.final_cost),

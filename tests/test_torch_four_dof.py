@@ -174,11 +174,11 @@ def test_four_dof_end_to_end_criterion(four_dof_solves):
 
 def test_four_dof_escalation_takes_the_device_rung():
     """The host rung serves the 6-DOF switched family only. Under "auto" a
-    4-DOF escalation takes the device rung, the fp64 lm_solve on the
-    problem's own device (here the CPU), and gives exactly fp64_resolve's
-    result; under "cpu" it raises. (The reference's device ladder tries its
-    mixed rung first, which the port does not have, so the result is held
-    to fp64_resolve rather than to the reference's rung label.)"""
+    4-DOF escalation takes the device ladder: with escalation forced, the
+    mixed rung and then the fp64 lm_solve on the problem's own device (here
+    the CPU), which gives exactly fp64_resolve's result; under "cpu" it
+    raises. (The ladder's labels against the reference's:
+    tests/test_torch_mixed.py.)"""
     g = jsynthetic.circle_graph(n_nodes=48, n_loops=8, seed=3,
                                 outlier_fraction=0.2)
     prob = tprob.build_problem_np(

@@ -1,8 +1,8 @@
 """PyTorch port: its own host modules against the JAX package's originals.
 
 The port keeps copies of the JAX package's numpy-only modules (config, graph
-store and worlds, native store binding, g2o I/O, synthetic graphs, numpy
-SE(3), viz sink). Each is held here against its original on the CPU: equal
+store and worlds, native store binding, g2o I/O, synthetic graphs, the
+dataset analogs, numpy SE(3), viz sink). Each is held here against its original on the CPU: equal
 configs and JSON, equal arrays from the same seeds and files, equal store
 and world state after the same ingest script, numpy SE(3) to 1e-15, and
 equal viz files from the same composed state."""
@@ -16,6 +16,7 @@ import pytest
 
 from solve_keyframe_pose_graph_tpu import config as jconfig
 from solve_keyframe_pose_graph_tpu.compose import vizsink as jviz
+from solve_keyframe_pose_graph_tpu.graph import datasets as jdatasets
 from solve_keyframe_pose_graph_tpu.graph import g2o as jg2o
 from solve_keyframe_pose_graph_tpu.graph import native as jnative
 from solve_keyframe_pose_graph_tpu.graph import store as jstore
@@ -23,6 +24,7 @@ from solve_keyframe_pose_graph_tpu.graph import synthetic as jsyn
 from solve_keyframe_pose_graph_tpu.utils import nse3 as jnse3
 from solve_keyframe_pose_graph_tpu_torch import config as tconfig
 from solve_keyframe_pose_graph_tpu_torch.compose import vizsink as tviz
+from solve_keyframe_pose_graph_tpu_torch.graph import datasets as tdatasets
 from solve_keyframe_pose_graph_tpu_torch.graph import g2o as tg2o
 from solve_keyframe_pose_graph_tpu_torch.graph import native as tnative
 from solve_keyframe_pose_graph_tpu_torch.graph import store as tstore
@@ -79,6 +81,25 @@ def test_config_matches_reference(variant):
 def test_circle_graph_matches_reference(seed, n, loops, outliers):
     kw = dict(n_nodes=n, n_loops=loops, seed=seed, outlier_fraction=outliers)
     _assert_tree_equal(tsyn.circle_graph(**kw), jsyn.circle_graph(**kw))
+
+
+@pytest.mark.parametrize("name,seed", [
+    ("sphere2500-analog", 7), ("manhattan3500-analog", 11),
+    ("torus-analog", 13)])
+def test_dataset_matches_reference(name, seed):
+    assert tdatasets.DATASETS.keys() == jdatasets.DATASETS.keys()
+    kw = dict(n_nodes=400, n_loops=60, seed=seed)
+    _assert_tree_equal(dataclasses.asdict(tdatasets.DATASETS[name](**kw)),
+                       dataclasses.asdict(jdatasets.DATASETS[name](**kw)))
+
+
+def test_datasets_have_loops():
+    """tests/test_cli_g2o.py's check, on the port's generators."""
+    for name, fn in tdatasets.DATASETS.items():
+        g = fn(n_nodes=400, n_loops=60, seed=3)
+        odo, loop = g.split_edges()
+        assert odo.sum() == g.n_nodes - 1, name
+        assert loop.sum() >= 40, (name, loop.sum())
 
 
 @pytest.mark.parametrize("name", ["sphere2500-analog", "torus-analog"])

@@ -67,11 +67,13 @@ def test_lm_solve_without_switches_matches_reference():
 
 
 def test_lm_solve_rejects_unported_options():
+    """An unknown precision is refused, naming the allowed ones (the
+    reference treats any value but "mixed" as "native")."""
     _, jp = build_circle_problem(n=64, n_loops=4)
     tp = problem_from_arrays({f: np.asarray(getattr(jp, f)) for f in FIELDS},
                              "cpu")
-    for bad in (dict(precision="mixed"),):
-        with pytest.raises(ValueError, match="not ported"):
+    for bad in (dict(precision="double"), dict(precision="fp32")):
+        with pytest.raises(ValueError, match="'native', 'mixed'"):
             tlm.lm_solve(tp, **bad)
 
 

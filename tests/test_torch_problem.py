@@ -126,6 +126,7 @@ import chip_smoke                       # its main() is guarded
 assert len(names) >= 25, names
 assert {pkg.__name__ + ".parallel." + m for m in
         ("sharding", "collectives", "sharded_lm", "sharded_pcg")} <= set(names)
+assert pkg.__name__ + ".graph.datasets" in names
 
 from solve_keyframe_pose_graph_tpu_torch import cli
 from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
@@ -154,6 +155,19 @@ res = lm_solve(shard_problem(prob, make_mesh(2, device_type="cpu")),
                max_iterations=3, preconditioner="band+coarse",
                coarse_group=16)
 assert float(res.final_cost) < float(res.initial_cost)
+# the mixed rung, alone, on the device ladder and on the mesh
+from solve_keyframe_pose_graph_tpu_torch.ops.lm import escalate_resolve
+kw = dict(max_iterations=3, preconditioner="band+coarse", coarse_group=16)
+res, rung, stats = escalate_resolve(prob, kw, 3, fp64_backend="tpu")
+assert rung in ("mixed", "fp64") and res.q.dtype == torch.float64, rung
+assert stats["mixed_lm_iterations"] >= 1
+res = lm_solve(shard_problem(prob, make_mesh(2, device_type="cpu")),
+               precision="mixed", **kw)
+assert res.q.dtype == torch.float64
+assert float(res.final_cost) < float(res.initial_cost)
+from solve_keyframe_pose_graph_tpu_torch.graph import datasets
+for make in datasets.DATASETS.values():
+    assert make(n_nodes=200, n_loops=20, seed=3).n_nodes == 200
 from solve_keyframe_pose_graph_tpu_torch.solver.incremental import (
     IncrementalBuilder)
 builder = IncrementalBuilder()
@@ -179,8 +193,10 @@ print(len(names))
 def test_port_imports_no_jax(sphere_g2o, tmp_path):  # noqa: F811
     """Every module of the port (parallel/* included) and chip_smoke.py
     load, and CPU lm_solves (6-DOF with band+coarse and band*coarse, 4-DOF,
-    and a 2-shard CPU mesh), two incremental builds and a CLI solve run,
-    with jax and the JAX package refused by an import hook."""
+    and a 2-shard CPU mesh), the mixed rung (through the device ladder and
+    on the mesh), the three dataset generators, two incremental builds and
+    a CLI solve run, with jax and the JAX package refused by an import
+    hook."""
     path, _ = sphere_g2o
     out_json = str(tmp_path / "solve.json")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -144,3 +144,29 @@ def test_server_stops_and_raises_when_the_solver_fails(tmp_path):
     th.start()
     th.join(timeout=60)
     assert not th.is_alive() and len(raised) == 1
+
+
+def test_path_query_imu_frame():
+    """tests/test_server.py's imu-frame path query through the port's
+    server (runtime_server.py's imu branch): w_T_imu = w_T_c (imu_T_c)^-1,
+    and the camera frame unchanged."""
+    from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
+
+    store = GraphStore()
+    server = PoseGraphServer(store, device="cpu")
+    t0 = 1_000_000_000
+    q_ic = nse3.quat_normalize(np.asarray([0.0, 0.0, 0.2, 1.0]))
+    t_ic = np.asarray([0.1, 0.0, 0.05])
+    store.set_extrinsic(q_ic, t_ic)
+    for i in range(10):
+        store.add_node(t0 + i * 1_000_000_000, nse3.quat_identity(),
+                       [float(i), 0, 0])
+    r = server._query({"what": "path", "frame": "imu"})
+    assert r["n"] == 10
+    # w_T_imu = w_T_c * (imu_T_cam)^-1 for the identity-rotation poses
+    q_ci, t_ci = nse3.pose_inv(q_ic, t_ic)
+    expect0 = np.asarray([0.0, 0, 0]) + t_ci
+    np.testing.assert_allclose(np.asarray(r["t"][0]), expect0, atol=1e-12)
+    r_cam = server._query({"what": "path", "frame": "camera"})
+    np.testing.assert_allclose(np.asarray(r_cam["t"][0]), [0, 0, 0],
+                               atol=1e-12)

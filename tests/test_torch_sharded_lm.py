@@ -104,8 +104,9 @@ def test_sharded_lm_matches_the_jax_gspmd_solve(preconditioner):
 
 def test_escalation_rungs_take_a_sharded_problem(monkeypatch):
     """The host rung solves the gathered Problem (bitwise the unsharded
-    rung); the device rung re-shards its fp64 repack over the same mesh.
-    The device rung runs CG to its cap of 100 iterations per LM step,
+    rung); on the device ladder the mixed rung solves the ShardedProblem
+    itself and the fp64 rung re-shards its fp64 repack over the same mesh.
+    The fp64 rung runs CG to its cap of 100 iterations per LM step,
     where two fp64 CG runs whose sums differ only in order drift apart
     (30 iterations agree to 1e-15 on this graph, 100 to 1e-4), so its
     result is held to chi^2 within 1e-3 only."""
@@ -130,7 +131,8 @@ def test_escalation_rungs_take_a_sharded_problem(monkeypatch):
     monkeypatch.setattr(tlm, "lm_solve", spy)
     got, rung_sh, _ = tlm.escalate_resolve(sp, kw, 0, fp64_backend="tpu")
     assert rung_sh == rung == "fp64"
-    (p64,) = solved
+    mixed, p64 = solved
+    assert mixed is sp
     assert isinstance(p64, ShardedProblem) and p64.mesh is mesh
     assert p64.dtype == torch.float64
     assert got.q.dtype == torch.float64 and got.q.shape == (256, 4)
@@ -157,9 +159,10 @@ def test_device_rung_on_a_mesh_that_is_not_a_power_of_two(monkeypatch):
         return real(problem, **kw)
 
     monkeypatch.setattr(tlm, "lm_solve", spy)
-    got, rung, _ = tlm.escalate_resolve(shard_problem(prob32, cpu_mesh(3)),
-                                        kw, 0, fp64_backend="tpu")
-    (p64,) = solved
+    sp = shard_problem(prob32, cpu_mesh(3))
+    got, rung, _ = tlm.escalate_resolve(sp, kw, 0, fp64_backend="tpu")
+    mixed, p64 = solved             # the mixed rung solves sp itself
+    assert mixed is sp
     assert rung == "fp64" and isinstance(p64, ShardedProblem)
     assert (p64.n_cap, p64.e_cap, p64.n_shards) == (1536, 24, 3)
     assert got.q.dtype == torch.float64 and got.q.shape == (1536, 4)

@@ -7,15 +7,18 @@ Phases, one printed line each (or a few):
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles both hand-written kernels from csrc/ with nvcc;
   3. kernel K1 (band matvec) against its plain PyTorch version on the card,
-     at N = 8192 (the main path), 5120, 5000 (not a multiple of the tile)
-     and 4099 (not a multiple of 4: the one-element-copy path), F = 1, 5
-     and 8, fp32 and fp64, with times, the bound and its share;
+     at N = 32768 (the capacity ceiling of phase 15), 8192 (the main path),
+     5120, 5000 (not a multiple of the tile) and 4099 (not a multiple of 4:
+     the one-element-copy path), F = 1, 5 and 8, fp32 and fp64, with times
+     (also with the L2 cache flushed at the two path shapes), the bound and
+     its share;
   4. kernel K2 (batched SPD inverse) against its plain version and an fp64
-     torch.linalg.inv, at d = 12, 30, 36, 64 and n = 1024, 512, 1, fp32 and
-     fp64, with times, the bound and torch.linalg.inv's time; then the
-     strided odd blocks A[1::2] read in place: equal to the contiguous call,
-     and best_inv hands the view's own pointer to one launch, allocating
-     nothing beyond the output;
+     torch.linalg.inv, at d = 12, 30, 36, 64 and n = 4096 (phase 15's first
+     K2 call), 1024, 512, 1, fp32 and fp64, with times, the bound and
+     torch.linalg.inv's time; then the strided odd blocks A[1::2]
+     of a 2048 and an 8192 batch read in place: equal to the contiguous
+     call, and best_inv hands the view's own pointer to one launch,
+     allocating nothing beyond the output;
   5. the port's main path: one lm_solve at the product defaults on the
      5,000-node / 10,000-loop-edge circle graph (the bench graph), with both
      kernels' launch counts, chi^2 (also re-evaluated in fp64) against the
@@ -85,9 +88,28 @@ Phases, one printed line each (or a few):
      (fp32) on 4 shards through escalate_resolve's device ladder (the mixed
      rung on the shards, then the fp64 rung sharded again over the mesh)
      against the unmeshed ladder, within 1e-3 in chi^2. With two or more
-     cards (a) also runs across distinct cards.
+     cards (a) also runs across distinct cards;
+ 15. capacity: the reference's ceiling of 30,000 nodes and 30,000 loop
+     edges (circle graph, n_cap = e_cap = 32768, fp32) through lm_solve at
+     the product defaults (coarse group 128, K1 at N = 32768, K2 on 4096,
+     2048 and 2048 blocks): chi^2 within 2% of the JAX package's 5.9532
+     and within 1e-4 of its fp64 re-evaluation, 10 LM iterations, every
+     launch on the fp32 entry points, the median and spread of 5 timed
+     solves, the peak memory, and one solve under torch.profiler (device
+     time by kernel, the card's idle share of the wall); then the device
+     ladder forced on it (the mixed rung, then the fp64 rung), its launches
+     split by precision, its chi^2 no worse than the mixed rung's;
+ 16. capacity_stream: a 30,000-node / 3,000-loop circle graph streamed
+     node by node into SolverEngine at the default Config (after warmup),
+     a trigger polled every 1,000 nodes after a 2 s pause, the
+     escalation ladder forced on the first trigger from node 20,000 (the
+     32768 bucket), then drain, one settle trigger and drain: the forced
+     escalation lands on the host fp64 rung, applied, at least one trigger
+     is served after it, the settle chi^2 is within 1e-4 of its fp64
+     re-evaluation; trigger walls, build times at and between bucket
+     doubles, the peak memory.
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
-no result line. Each path of phases 5 and 7-14 is run with the kernels'
+no result line. Each path of phases 5 and 7-16 is run with the kernels'
 launch counts set to 0 just before it and read just after (phase 8's
 exact-step self-reference, phase 12's CPU solve and phase 14's unsharded
 references run outside them); where
@@ -126,6 +148,7 @@ from solve_keyframe_pose_graph_tpu_torch.graph import (
     messages, native, store as store_mod, synthetic,
 )
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels, band_matvec, gn
+from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import smallinv
 from solve_keyframe_pose_graph_tpu_torch.ops.lm import lm_solve
@@ -145,7 +168,9 @@ from solve_keyframe_pose_graph_tpu_torch.runtime_server import (
     PoseGraphServer,
 )
 from solve_keyframe_pose_graph_tpu_torch.solver import native_ldl
-from solve_keyframe_pose_graph_tpu_torch.solver.engine import SolverEngine
+from solve_keyframe_pose_graph_tpu_torch.solver.engine import (
+    SolverEngine, _bucket,
+)
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
     build_problem_np, problem_astype,
 )
@@ -265,6 +290,11 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
 K1_MAIN = (8192, 5)        # (N, F) of the main path's K1 calls
 K2_MAIN = (1024, 30)       # (n, d) of the main path's first K2 call
+# the same at the capacity ceiling (n_cap 32768, phase 15): K1 at N =
+# n_cap, and K2's first call on Mp/2 odd super-nodes, Mp = next_pow2(
+# ceil(32768 / 5)) = 8192 (ops/band.py)
+K1_CAP = (32768, 5)
+K2_CAP = (4096, 30)
 
 
 def bound(nbytes: float, flops: float, elsize: int) -> tuple[float, str]:
@@ -295,12 +325,14 @@ def cold_event_ms(fn, reps: int = 30) -> float:
 
 
 def phase_k1(dev) -> dict:
-    """K1 against its plain version at the main path's shape and at N not a
-    multiple of the tile (5000) or of 4 (4099, the one-element-copy path),
-    F = 1, 5 and 8, fp32 and fp64."""
+    """K1 against its plain version at the main path's shape, at the
+    capacity ceiling's and at N not a multiple of the tile (5000) or of 4
+    (4099, the one-element-copy path), F = 1, 5 and 8, fp32 and fp64. The
+    main path's numbers come back, with the capacity shape's under
+    "capacity"."""
     rng = np.random.default_rng(1)
-    out = {}
-    for N in (8192, 5120, 5000, 4099):
+    out, cap = {}, {"N": K1_CAP[0], "F": K1_CAP[1]}
+    for N in (K1_CAP[0], 8192, 5120, 5000, 4099):
         for F in (1, 5, 8):
             for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
                 D, B, x = (torch.tensor(rng.normal(size=s), dtype=dt,
@@ -329,7 +361,7 @@ def phase_k1(dev) -> dict:
                 if F == 5:
                     row["plain_ms"] = event_ms(
                         lambda: band_matvec.band_matvec_plain(D, B, x))
-                if (N, F) == K1_MAIN:
+                if (N, F) in (K1_MAIN, K1_CAP):
                     row["kernel_ms_cold_l2"] = cold_event_ms(
                         lambda: band_matvec.band_matvec(D, B, x))
                 say("k1", **row)
@@ -341,7 +373,12 @@ def phase_k1(dev) -> dict:
                                library_ms=None,
                                library_note="no single PyTorch call computes "
                                "a block-banded matvec from these arrays")
-    return out
+                if (N, F) == K1_CAP:
+                    cap[row["dtype"]] = {k: row[k] for k in (
+                        "kernel_ms", "kernel_ms_cold_l2", "plain_ms",
+                        "bound_ms", "bound_by", "bound_share",
+                        "max_abs_err")}
+    return dict(out, capacity=cap)
 
 
 def spd_batch(rng, n: int, d: int, dev) -> torch.Tensor:
@@ -352,14 +389,17 @@ def spd_batch(rng, n: int, d: int, dev) -> torch.Tensor:
 
 def phase_k2(dev) -> dict:
     """K2 against its plain version and an fp64 torch.linalg.inv at d = 12,
-    30, 36 and 64 and n = 1024, 512 and 1, fp32 and fp64; the strided odd
-    blocks A[1::2] read in place (no copy); torch.linalg.inv timed beside
-    the kernel as the library yardstick (the port never calls it)."""
+    30, 36 and 64 and n = 4096 (the capacity ceiling's), 1024, 512 and 1,
+    fp32 and fp64; the strided odd blocks A[1::2] read in
+    place (no copy) at the main path's and the capacity's n;
+    torch.linalg.inv timed beside the kernel as the library yardstick (the
+    port never calls it). The main path's numbers come back, with the
+    capacity shape's under "capacity"."""
     rng = np.random.default_rng(2)
-    out = {}
+    out, cap = {}, {"n": K2_CAP[0], "d": K2_CAP[1]}
     tols = ((torch.float32, 1e-4), (torch.float64, 1e-10))
     for d in (12, 30, 36, 64):
-        for n in (1024, 512, 1):
+        for n in (K2_CAP[0], 1024, 512, 1):
             A64 = spd_batch(rng, n, d, dev)
             exact = torch.linalg.inv(A64)
             for dt, tol in tols:
@@ -378,6 +418,7 @@ def phase_k2(dev) -> dict:
                 row = dict(n=n, d=d, dtype=str(dt).split(".")[1],
                            max_rel_err_vs_fp64_inv=rel,
                            max_rel_err_vs_plain=rel_plain, tol=tol,
+                           max_abs_err=abs_plain,
                            kernel_ms=event_ms(lambda: smallinv.gj_inv(A)),
                            bound_ms=b_ms, bound_by=b_by)
                 row["bound_share"] = b_ms / row["kernel_ms"]
@@ -396,11 +437,23 @@ def phase_k2(dev) -> dict:
                                bound_by=b_by, bound_share=row["bound_share"],
                                library_ms=row["library_ms"],
                                library_note="torch.linalg.inv, same dtype")
+                if (n, d) == K2_CAP:
+                    cap[row["dtype"]] = {k: row[k] for k in (
+                        "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "bound_share", "max_abs_err")}
+    for n, d in (K2_MAIN, K2_CAP):
+        ms = k2_strided(rng, n, d, dev, tols)
+        if (n, d) == K2_CAP:
+            cap["strided_kernel_ms"] = ms
+    return dict(out, capacity=cap)
 
-    # the cyclic reduction's odd blocks: a strided view, read in place
-    n, d = K2_MAIN
+
+def k2_strided(rng, n: int, d: int, dev, tols) -> dict:
+    """The cyclic reduction's odd blocks: A[1::2] of a 2n batch, a strided
+    view that K2 reads in place. Returns the kernel's time by dtype."""
     whole = spd_batch(rng, 2 * n, d, dev)
     exact = torch.linalg.inv(whole[1::2])
+    times = {}
     for dt, tol in tols:
         A = whole.to(dt)[1::2]
         if A.is_contiguous() or smallinv.batch_stride(A) != 2 * d * d:
@@ -410,7 +463,7 @@ def phase_k2(dev) -> dict:
         torch.cuda.synchronize()
         _, rel = rel_err(X, exact)
         if not (torch.equal(X, C) and X.is_contiguous() and rel <= tol):
-            raise AssertionError(f"K2 on A[1::2] {dt}: equal to the "
+            raise AssertionError(f"K2 on A[1::2] n={n} {dt}: equal to the "
                                  f"contiguous call {torch.equal(X, C)}, "
                                  f"rel err {rel} vs fp64 inverse")
         # best_inv hands the view itself to the kernel: one launch, the
@@ -442,15 +495,18 @@ def phase_k2(dev) -> dict:
                 and smallinv.gj_inv.launches == launches + 1
                 and torch.equal(Y, X)):
             raise AssertionError(
-                f"best_inv(A[1::2]) {dt}: kernel pointers {seen} vs view "
-                f"{A.data_ptr()}, {extra} B allocated for a {out_bytes} B "
-                f"output, launches {smallinv.gj_inv.launches - launches}")
-        say("k2-strided", n=n, d=d, dtype=str(dt).split(".")[1],
+                f"best_inv(A[1::2]) n={n} {dt}: kernel pointers {seen} vs "
+                f"view {A.data_ptr()}, {extra} B allocated for a "
+                f"{out_bytes} B output, launches "
+                f"{smallinv.gj_inv.launches - launches}")
+        tag = str(dt).split(".")[1]
+        times[tag] = event_ms(lambda: smallinv.gj_inv(A))
+        say("k2-strided", n=n, d=d, dtype=tag,
             batch_stride=smallinv.batch_stride(A), max_rel_err_vs_fp64_inv=rel,
             equal_to_contiguous_call=True, best_inv_launches=1,
             best_inv_extra_bytes=extra, kernel_ptr_is_view_ptr=True,
-            kernel_ms=event_ms(lambda: smallinv.gj_inv(A)))
-    return out
+            kernel_ms=times[tag])
+    return times
 
 
 def circle_problem(n, n_loops, n_cap, e_cap, dtype, device, outliers=0.2,
@@ -935,6 +991,53 @@ def phase_cli_solve(tmp: str, card: str) -> None:
             wall_s=round(h["wall_s"], 3),
             launches=json.dumps(PATH_LAUNCHES[path], separators=(",", ":")),
             card=repr(card))
+
+
+def distress_stream(eng, store, g, every: int, inject_at: int,
+                    pace_s: float = 0.0) -> dict:
+    """Feed the synthetic graph `g` to `eng` node by node, each loop edge
+    right after its later endpoint, and poll eng.trigger() at every
+    `every`-th node (0, every, 2 every, ...) after a sleep of pace_s, as
+    benchmarks/run_baseline.py's streaming_30k row does. The first poll at
+    or after node `inject_at` that fires has the escalation ladder forced
+    (escalate_rejects=0 for that one trigger). Works with either package's
+    engine and store. Returns {"polls": one dict per poll (node, fired,
+    waiting: new edges were waiting, landed: the forced escalation's row
+    had been written before the poll), "injected": that trigger's id or
+    None}; the caller drains and settles."""
+    t0, dt = 1_000_000_000, 100_000_000
+    by_later: dict = {}
+    for k in range(g.n_loops):
+        by_later.setdefault(int(g.loop_pairs[k].max()), []).append(k)
+    polls, injected = [], None
+    for i in range(g.n_nodes):
+        store.add_node(t0 + i * dt, g.vio_q[i], g.vio_t[i])
+        for k in by_later.get(i, ()):
+            a, b = map(int, g.loop_pairs[k])
+            store.add_loop_edge(t0 + a * dt, t0 + b * dt, g.loop_q[k],
+                                g.loop_t[k], float(g.loop_w[k]))
+        if i % every:
+            continue
+        if pace_s:
+            time.sleep(pace_s)
+        landed = injected is not None and any(
+            r.get("background_escalation") and r["trigger"] == injected
+            for r in eng.solve_stats)
+        saved = eng.config
+        inject = injected is None and i >= inject_at
+        if inject:
+            eng.config = dataclasses.replace(saved, solver=dataclasses.replace(
+                saved.solver, escalate_rejects=0))
+        waiting = store.edge_len > eng.prev_edge_len
+        try:
+            fired = eng.trigger()
+        finally:
+            eng.config = saved
+        if inject and fired:
+            injected = eng.trigger_id
+        polls.append(dict(node=i, fired=fired, waiting=waiting,
+                          landed=landed))
+    return {"polls": polls, "injected": injected}
 
 
 def make_stream(path: str, n: int = 5000, n_loops: int = 2500,
@@ -1463,8 +1566,289 @@ def mesh_escalation(dev, card: str, prob) -> None:
                             separators=(",", ":")), card=repr(card))
 
 
+# the reference's array sizes (PoseGraphSLAM.cpp:17-25) as
+# benchmarks/run_baseline.py's bench_capacity solves them: nodes, loop
+# edges, n_cap, e_cap
+CAPACITY = (30000, 30000, 32768, 32768)
+# the JAX package's chi^2 of that solve at the product config
+# (BASELINE.md:347); a quality bar, as CHI2_REF is for the bench graph
+CHI2_CAP = 5.9532
+# phase 16's stream: benchmarks/run_baseline.py's streaming_30k row (its
+# graph and its 2 s pause before each poll, polled every 1,000 nodes where
+# it polls every 500), the ladder forced from node 20,000 on. A poll
+# refused while the escalation runs returns at once, so the pauses alone
+# must span it for a trigger to be served after it lands in the stream:
+# nine polls after node 20,000, 18 s, against 9.2 s for the host rung at
+# 20k nodes on the card's host (a 1 s pause left one poll to spare)
+CAPACITY_STREAM = dict(nodes=30000, loops=3000, every=1000, inject_at=20000,
+                       pace_s=2.0)
+
+
+@contextlib.contextmanager
+def solves_seen():
+    """Record (problem, result) of every lm_solve that the engine and the
+    escalation ladder call (they look it up on ops.lm at each call)."""
+    seen: list = []
+    real = lm_ops.lm_solve
+
+    def spy(problem, **kw):
+        res = real(problem, **kw)
+        seen.append((problem, res))
+        return res
+
+    lm_ops.lm_solve = spy
+    try:
+        yield seen
+    finally:
+        lm_ops.lm_solve = real
+
+
+def fp64_chi2(problem, res) -> float:
+    """chi^2 of a result re-evaluated from scratch in fp64 (independent of
+    the solve's assembly and its dtype)."""
+    return float(gn.evaluate_cost(
+        problem_astype(problem, torch.float64), res.q.double(),
+        res.t.double(), res.switch.double()))
+
+
+def device_profile(fn) -> dict:
+    """torch.profiler over one call of fn (which ends in a host read):
+    device time in total and by kernel name, and the idle share of the
+    call's wall (the part in which the card ran nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    device_ms = sum(ms for _, ms in by_name.values())
+    if not device_ms:
+        raise AssertionError("the profiler saw no device time")
+
+    def kernel(key: str) -> dict:
+        hits = [v for k, v in by_name.items() if key in k]
+        return {"launches": sum(n for n, _ in hits),
+                "ms": sum(ms for _, ms in hits)}
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(profiled_wall_ms=wall, device_ms=device_ms,
+                idle_share=1.0 - device_ms / wall,
+                device_ops=sum(n for n, _ in by_name.values()),
+                k1=kernel("band_matvec"), k2=kernel("gj_inv"),
+                top=[{"name": k[:80], "launches": n, "ms": round(ms, 3)}
+                     for k, (n, ms) in top])
+
+
+def phase_capacity(dev, card: str) -> None:
+    """Phase 15 (see the module note)."""
+    n, loops, n_cap, e_cap = CAPACITY
+    t0 = time.perf_counter()
+    prob = circle_problem(n, loops, n_cap, e_cap, np.float32, dev)
+    torch.cuda.synchronize()
+    group = coarse_ops.auto_coarse_group(prob.n_cap)
+    say("capacity", build_s=round(time.perf_counter() - t0, 3), nodes=n,
+        loop_edges=loops, n_cap=prob.n_cap, e_cap=prob.e_cap,
+        coarse_group=group, coarse_dim=6 * -(-prob.n_cap // group),
+        dtype="float32", **PRODUCT)
+
+    torch.cuda.reset_peak_memory_stats()
+    with counted("capacity"), entry_points_taken() as taken:
+        res = lm_solve(prob, **PRODUCT)
+        chi2 = float(res.final_cost)
+    peak = torch.cuda.max_memory_allocated()
+    want = solve_launches(res, PRODUCT["max_cg_iterations"])
+    check_launches("capacity", want)
+    precision = by_precision(taken)
+    if any(v["f64"] or v["f32"] != want[k] for k, v in precision.items()):
+        raise AssertionError(f"capacity solve: kernels ran {precision}, not "
+                             f"all {want} on the fp32 entry points")
+    chi2_64 = fp64_chi2(prob, res)
+    if not (within_quality(chi2, CHI2_CAP)
+            and abs(chi2_64 - chi2) <= 1e-4 * chi2_64
+            and int(res.iterations) == PRODUCT["max_iterations"]):
+        raise AssertionError(
+            f"capacity solve: chi^2 {chi2} (fp64 re-evaluation {chi2_64}) "
+            f"vs {CHI2_CAP}, {int(res.iterations)} LM iterations")
+    if not (all(bool(torch.isfinite(v).all()) for v in (res.q, res.t,
+                                                         res.switch))
+            and tuple(res.q.shape) == (n_cap, 4)):
+        raise AssertionError(f"capacity solve: non-finite or "
+                             f"{tuple(res.q.shape)} solution")
+    lm_solve(prob, **PRODUCT)                    # second warm-up
+    times = timed_solves(lambda: float(lm_solve(prob, **PRODUCT).final_cost),
+                         reps=5)
+    say("capacity", chi2=chi2, chi2_fp64_eval=chi2_64, jax_chi2=CHI2_CAP,
+        gap=f"{chi2 / CHI2_CAP - 1:+.4%}",
+        initial_cost=float(res.initial_cost),
+        lm_iterations=int(res.iterations), accepted=int(res.successful_steps),
+        cg_iterations=int(res.total_cg_iterations),
+        distress_rejects=int(res.distress_rejects),
+        launches=json.dumps(PATH_LAUNCHES["capacity"], separators=(",", ":")),
+        expected_launches=json.dumps(want, separators=(",", ":")),
+        by_precision=json.dumps(precision, separators=(",", ":")),
+        median_ms_per_solve=float(np.median(times)),
+        spread_ms=float(max(times) - min(times)),
+        all_ms=json.dumps([round(t, 3) for t in times]),
+        max_memory_allocated=peak, card=repr(card))
+    prof = device_profile(lambda: float(lm_solve(prob, **PRODUCT).final_cost))
+    say("capacity-profile", **{k: (json.dumps(v, separators=(",", ":"))
+                                   if isinstance(v, (dict, list)) else v)
+                               for k, v in prof.items()},
+        median_unprofiled_ms=float(np.median(times)), card=repr(card))
+
+    # the device ladder forced on the same problem: the mixed rung (K1 and
+    # K2 in fp32), then the fp64 rung (both in fp64, repacked to n_cap
+    # 30720); the mixed rung's own chi^2 from a solve outside the count
+    mixed = float(lm_solve(prob, precision="mixed", **PRODUCT).final_cost)
+    with counted("capacity-ladder"), entry_points_taken() as taken:
+        t0 = time.perf_counter()
+        res, rung, stats = lm_ops.escalate_resolve(prob, PRODUCT, 0,
+                                                   fp64_backend="tpu")
+        chi2 = float(res.final_cost)
+        wall = time.perf_counter() - t0
+    want = ladder_launches(res, rung, stats)
+    check_launches("capacity-ladder", want)
+    mixed_part = ladder_launches(res, "mixed", stats)
+    split = {k: {"f32": mixed_part[k], "f64": want[k] - mixed_part[k]}
+             for k in want}
+    precision = by_precision(taken)
+    if precision != split:
+        raise AssertionError(f"capacity ladder ran {precision}, its rungs "
+                             f"imply {split}")
+    if not (rung == "fp64" and math.isfinite(chi2) and chi2 <= mixed):
+        raise AssertionError(f"capacity ladder: rung {rung!r}, chi^2 {chi2} "
+                             f"vs the mixed rung's {mixed}")
+    say("capacity-ladder", rung=rung, chi2=chi2, mixed_chi2=mixed,
+        lm_iterations=int(res.iterations), accepted=int(res.successful_steps),
+        cg_iterations=int(res.total_cg_iterations),
+        rung_stats=json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                   else v) for k, v in stats.items()}),
+        wall_s=round(wall, 4),
+        launches=json.dumps(PATH_LAUNCHES["capacity-ladder"],
+                            separators=(",", ":")),
+        ladder_launches=json.dumps(split, separators=(",", ":")),
+        card=repr(card))
+
+
+def phase_capacity_stream(dev, card: str) -> None:
+    """Phase 16 (see the module note)."""
+    cs = CAPACITY_STREAM
+    g = synthetic.circle_graph(n_nodes=cs["nodes"], n_loops=cs["loops"],
+                               seed=1)
+    every, inject_at, pace_s = cs["every"], cs["inject_at"], cs["pace_s"]
+    torch.set_num_threads(min(8, os.cpu_count() or 1))  # for the host rung
+    store = native.make_store()
+    eng = SolverEngine(store, Config(), device=dev)
+    caps = eng.config.capacity
+    w0 = time.perf_counter()
+    eng.warmup(g.n_nodes, g.n_loops)
+    if not eng.warmup_join(timeout=300) or native_ldl._lib is None:
+        raise AssertionError("warmup did not load the host fp64 rung")
+    warm_s = time.perf_counter() - w0
+    torch.cuda.reset_peak_memory_stats()
+    with counted("capacity-stream"):
+        t0 = time.perf_counter()
+        rec = distress_stream(eng, store, g, every, inject_at, pace_s)
+        eng.drain()
+        with solves_seen() as seen:           # the settle trigger's solve
+            settled = eng.trigger()
+        eng.drain()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("capacity-stream", expected_launches(eng.solve_stats))
+
+    rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
+    esc = [r for r in eng.solve_stats if r.get("background_escalation")]
+    tid = rec["injected"]
+    forced = [r for r in rows if r["trigger"] == tid]
+    landed = [r for r in esc if r["trigger"] == tid]
+    polls = rec["polls"]
+    after = sum(p["fired"] and p["landed"] for p in polls)
+    if not (tid is not None and forced and landed):
+        raise AssertionError(f"the forced escalation: trigger {tid}, rows "
+                             f"{forced}, {landed}")
+    forced, landed = forced[0], landed[0]
+    if not (forced["fp64_escalated"] == "pending"
+            and _bucket(forced["node_len"], caps.initial_nodes)
+            == _bucket(g.n_nodes, caps.initial_nodes)
+            and landed.get("escalated_rung") == "fp64-cpu"
+            and landed.get("applied") is True and after >= 1):
+        raise AssertionError(f"the forced escalation at node_len "
+                             f"{forced['node_len']}: {landed}; "
+                             f"{after} triggers served after it landed")
+    if not (settled and len(seen) == 1):
+        raise AssertionError(f"settle trigger fired {settled}, "
+                             f"{len(seen)} solves")
+    problem, res = seen[0]
+    chi2, chi2_64 = float(res.final_cost), fp64_chi2(problem, res)
+    if not (math.isfinite(chi2) and abs(chi2_64 - chi2) <= 1e-4 * chi2_64
+            and rows[-1]["final_cost"] == chi2):
+        raise AssertionError(f"settle chi^2 {chi2}, fp64 re-evaluation "
+                             f"{chi2_64}, row {rows[-1]['final_cost']}")
+    poses = np.array([np.concatenate(eng.get_node_pose(i))
+                      for i in range(eng.n_opt_variables())])
+    if len(poses) != g.n_nodes or not np.isfinite(poses).all():
+        raise AssertionError(f"{len(poses)} poses, finite "
+                             f"{np.isfinite(poses).all()}")
+
+    walls = [r["trigger_wall_ms"] for r in rows[:-1]]
+    full, delta, prev = [], [], 0
+    for r in rows:
+        if r["full_builds"] > prev:
+            full.append([r["node_len"],
+                         _bucket(r["node_len"], caps.initial_nodes),
+                         _bucket(r["edge_len"], caps.initial_edges),
+                         round(r["problem_build_ms"], 3)])
+        else:
+            delta.append(r["problem_build_ms"])
+        prev = r["full_builds"]
+    stats = landed["rung_stats"]
+    say("capacity-stream", nodes=g.n_nodes, loop_edges=g.n_loops,
+        poll_every=every, pace_s=pace_s, polls=len(polls),
+        fired=sum(p["fired"] for p in polls),
+        refused=sum(p["waiting"] and not p["fired"] for p in polls),
+        median_trigger_wall_ms=float(np.median(walls)),
+        p90_trigger_wall_ms=float(np.percentile(walls, 90)),
+        max_trigger_wall_ms=float(max(walls)),
+        settle_trigger_wall_ms=rows[-1]["trigger_wall_ms"],
+        node_len_and_wall_ms=json.dumps([[r["node_len"],
+                                          round(r["trigger_wall_ms"], 1)]
+                                         for r in rows]),
+        full_builds_node_len_ncap_ecap_ms=json.dumps(full),
+        delta_builds=len(delta),
+        median_delta_build_ms=float(np.median(delta)) if delta else None,
+        max_delta_build_ms=float(max(delta)) if delta else None,
+        warmup_s=round(warm_s, 3), stream_wall_s=round(wall, 3),
+        max_memory_allocated=peak,
+        launches=json.dumps(PATH_LAUNCHES["capacity-stream"],
+                            separators=(",", ":")), card=repr(card))
+    say("capacity-stream-escalation", injected_at_node=forced["node_len"] - 1,
+        trigger=tid, rung=landed["escalated_rung"],
+        applied=landed["applied"], rung_n_cap=stats["n_cap"],
+        rung_e_cap=stats["e_cap"], rung_total_s=round(stats["total_s"], 4),
+        rung_fetch_s=round(stats["fetch_s"], 4),
+        escalation_wall_ms=round(landed["escalation_wall_ms"], 3),
+        escalated_chi2=landed["final_cost"],
+        fp32_chi2=forced["final_cost"],
+        served_after_landing=after,
+        other_escalations=json.dumps([(r["trigger"], r.get("escalated_rung"),
+                                       r.get("applied")) for r in esc
+                                      if r is not landed]),
+        settle_chi2=chi2, settle_chi2_fp64_eval=chi2_64,
+        settle_node_len=rows[-1]["node_len"], card=repr(card))
+
+
 PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
-          "replay", "serve", "two-grid", "four-dof", "incremental", "mesh")
+          "replay", "serve", "two-grid", "four-dof", "incremental", "mesh",
+          "capacity", "capacity_stream")
 
 
 def main(argv=None) -> None:
@@ -1511,6 +1895,10 @@ def main(argv=None) -> None:
             phase_incremental(tmp, card)
     if run("mesh"):
         phase_mesh(dev, card)
+    if run("capacity"):
+        phase_capacity(dev, card)
+    if run("capacity_stream"):
+        phase_capacity_stream(dev, card)
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return

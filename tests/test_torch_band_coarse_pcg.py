@@ -83,7 +83,7 @@ def test_bcr_factorize_and_apply_match_reference(reduced, levels, rng):
           jband.band_precond_apply(jf, jnp.asarray(r)))
 
 
-@pytest.mark.parametrize("group", [16, 64])
+@pytest.mark.parametrize("group", [16, 64, 128])
 def test_coarse_inverse_and_apply_match_reference(reduced, group, rng):
     jp, tp, jr, tr = reduced
     jH = jcoarse.build_coarse_inverse(jr, jp, group)

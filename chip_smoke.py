@@ -107,10 +107,15 @@ Phases, one printed line each (or a few):
      escalation lands on the host fp64 rung, applied, at least one trigger
      is served after it, the settle chi^2 is within 1e-4 of its fp64
      re-evaluation; trigger walls, build times at and between bucket
-     doubles, the peak memory.
+     doubles, the peak memory;
+ 17. bench: `bench_torch.py --reps 5` in a process of its own, as a user
+     runs it: it exits 0, its last line parses, its chi^2 is within the
+     bar (<= 1.02 x 0.4038), each rep launched K1 450 and K2 30 times, and
+     it names this card; its result line is printed on a [bench] line.
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
 no result line. Each path of phases 5 and 7-16 is run with the kernels'
-launch counts set to 0 just before it and read just after (phase 8's
+launch counts set to 0 just before it and read just after (phase 17's
+bench counts its own reps in its process; phase 8's
 exact-step self-reference, phase 12's CPU solve and phase 14's unsharded
 references run outside them); where
 the code fixes a path's launches by its LM and CG counts, they must match
@@ -133,6 +138,7 @@ import math
 import os
 import socket
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -192,9 +198,11 @@ def say(phase: str, **fields) -> None:
           flush=True)
 
 
-def card_line() -> str:
+def card_line(index=None) -> str:
+    """nvidia-smi's name and power limit: of every card, or of one."""
+    which = [] if index is None else [f"--id={index}"]
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", *which, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
@@ -510,8 +518,8 @@ def k2_strided(rng, n: int, d: int, dev, tols) -> dict:
 
 
 def circle_problem(n, n_loops, n_cap, e_cap, dtype, device, outliers=0.2,
-                   prior_w=1.1):
-    g = synthetic.circle_graph(n_nodes=n, n_loops=n_loops, seed=0,
+                   prior_w=1.1, seed=0):
+    g = synthetic.circle_graph(n_nodes=n, n_loops=n_loops, seed=seed,
                                outlier_fraction=outliers)
     return build_problem_np(
         q=g.vio_q, t=g.vio_t, vio_q=g.vio_q, vio_t=g.vio_t,
@@ -1614,21 +1622,24 @@ def fp64_chi2(problem, res) -> float:
 def device_profile(fn) -> dict:
     """torch.profiler over one call of fn (which ends in a host read):
     device time in total and by kernel name, and the idle share of the
-    call's wall (the part in which the card ran nothing)."""
+    call's wall (the part in which the card ran nothing). Only the device
+    activity is traced, and its raw events are read: recording every
+    host op as well made the traced wall ~2x the untraced one, and
+    turning ~65,000 device events into profiler FunctionEvents took
+    10-30 s of host time after a 5k/10k solve."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, ms = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, ms = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
     device_ms = sum(ms for _, ms in by_name.values())
     if not device_ms:
         raise AssertionError("the profiler saw no device time")
@@ -1846,9 +1857,42 @@ def phase_capacity_stream(dev, card: str) -> None:
         settle_node_len=rows[-1]["node_len"], card=repr(card))
 
 
+BENCH_REPS = 5              # phase 17's timed reps
+
+
+def phase_bench(card: str) -> None:
+    """Phase 17 (see the module note). The bench's launches go into the
+    kernels line as path "bench": its per-rep counts times its reps."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench_torch.py"), "--reps",
+         str(BENCH_REPS)], cwd=REPO, capture_output=True, text=True,
+        timeout=900)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"bench_torch.py exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    per_rep = {"band_matvec": res["k1_launches"], "gj_inv": res["k2_launches"]}
+    name = card.splitlines()[0].partition(",")[0].strip()
+    checks = dict(
+        metric=res["metric"] == "lm_solve_5k10k_ms",
+        reps=res["reps"] == len(res["all_ms"]) == BENCH_REPS,
+        chi2=math.isfinite(res["chi2"]) and res["chi2"] <= 1.02 * CHI2_REF,
+        launches=per_rep == {"band_matvec": 450, "gj_inv": 30},
+        card=res["card"] == name, backend=res["backend"] == "cuda")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench_torch.py: failed {failed} in "
+                             f"{lines[-1]}")
+    PATH_LAUNCHES["bench"] = {k: n * BENCH_REPS for k, n in per_rep.items()}
+    say("bench", process_wall_s=round(wall, 3), result=lines[-1])
+
+
 PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
           "replay", "serve", "two-grid", "four-dof", "incremental", "mesh",
-          "capacity", "capacity_stream")
+          "capacity", "capacity_stream", "bench")
 
 
 def main(argv=None) -> None:
@@ -1899,6 +1943,8 @@ def main(argv=None) -> None:
         phase_capacity(dev, card)
     if run("capacity_stream"):
         phase_capacity_stream(dev, card)
+    if run("bench"):
+        phase_bench(card)
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return

@@ -123,6 +123,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke                       # its main() is guarded
+import bench_torch                      # so is bench_torch's
+assert bench_torch.metric_name(5000, 10000) == "lm_solve_5k10k_ms"
 assert len(names) >= 25, names
 assert {pkg.__name__ + ".parallel." + m for m in
         ("sharding", "collectives", "sharded_lm", "sharded_pcg")} <= set(names)
@@ -191,9 +193,9 @@ print(len(names))
 
 
 def test_port_imports_no_jax(sphere_g2o, tmp_path):  # noqa: F811
-    """Every module of the port (parallel/* included) and chip_smoke.py
-    load, and CPU lm_solves (6-DOF with band+coarse and band*coarse, 4-DOF,
-    and a 2-shard CPU mesh), the mixed rung (through the device ladder and
+    """Every module of the port (parallel/* included), chip_smoke.py and
+    bench_torch.py load, and CPU lm_solves (6-DOF with band+coarse and
+    band*coarse, 4-DOF, and a 2-shard CPU mesh), the mixed rung (through the device ladder and
     on the mesh), the three dataset generators, two incremental builds and
     a CLI solve run, with jax and the JAX package refused by an import
     hook."""

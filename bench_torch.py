@@ -17,12 +17,18 @@ reference's capacity ceiling at n_cap = e_cap = 32768.
 Each rep is one lm_solve and the read of its chi^2, timed with CUDA events
 around the host's issue of the whole solve (the card idles while it waits
 for the host's launches, so its busy time alone would hide what the solve
-costs). Beside each rep it records, on the host, the perf_counter wall, the
+costs). lm_solve replays the captured graphs of the problem's bucket
+(ops/graphs.py): the first warm-up captures them, and its build's costs
+(the eager warm-up step, the two captures, their instantiation, the
+memory pools) are in the result line's `capture`; a rep that captured
+again would fail the bench. Beside each rep it records, on the host, the perf_counter wall, the
 issuing thread's CPU time (time.thread_time; it counts a spin-wait at a
 synchronisation as busy, and the time it waited for a CPU or the device
 not), the garbage collections and their time (gc.callbacks; the
-collector stays on, as users run it) and the allocator's reserved
-memory; and, just before the rep, two fixed probes of the host's speed:
+collector stays on, as users run it), the host's time inside the graph
+replay calls (graphs.REPLAY_S: the launches of the 11 graphs) and the
+allocator's reserved memory; and, just before the rep, two fixed probes
+of the host's speed:
 a pure-Python loop (ms) and the host's time to issue one tiny CUDA
 launch (us, over 500). The result line gives the correlation of the
 reps' times with each. gc.collect()
@@ -32,7 +38,8 @@ draw and temperature just before and just after them.
 Checks (any failure exits non-zero before the result line): every solve,
 warm-ups and the traced one included, gives the same chi^2 bit for bit and
 the same LM, accepted and CG counts; each rep launches K1 and K2 as often as
-its LM and CG counts imply (450 and 30 for 10 LM iterations); the chi^2 is
+its LM and CG counts imply (450 and 30 for 10 LM iterations) and captures
+nothing; the chi^2 is
 finite and agrees with its fp64 re-evaluation to 1e-3 relative; at seed 0
 it is at most 1.02 x the reference (0.4038 at 5k/10k, the fp64 exact-step
 reference; 5.9532 at 30k/30k, the JAX package's). At other seeds the
@@ -41,7 +48,9 @@ reference, where there is one (certify.HARNESS_REF for seeds 0-7 at
 
 After the timed reps one more solve runs under torch.profiler
 (chip_smoke.device_profile): device time, the card's idle share of that
-solve's wall, the device operations, K1 and K2 and the top kernels. It is
+solve's wall, the device operations, K1 and K2 and the top kernels. The
+K1 and K2 launches that it sees on the card must be those that the
+counters counted (they add each replayed graph's captured launches). It is
 kept apart from the timed numbers; its wall minus the median is the
 profiler's cost, so the idle share is also given against the median.
 
@@ -50,8 +59,11 @@ run, each with a [tag]; then the card's name and power limit; last one JSON
 object: metric (lm_solve_5k10k_ms at the default size), value (the median
 ms), unit, backend, card, power_limit_w, reps, p25, p75, min, max, all_ms,
 chi2, chi2_fp64_eval, chi2_ref, seed, the LM, accepted and CG counts,
-k1_launches and k2_launches (per rep), device_ms, idle_share and host (CPU
-model, the CPUs this process may run on, torch's thread count); then the
+k1_launches and k2_launches (per rep, counted), k1_launches_traced and
+k2_launches_traced (seen by the profiler in the traced solve), device_ms, idle_share, capture
+(the graph build's warmup_s, capture_s, instantiate_s and pool_bytes) and
+host (CPU model, the CPUs this process may run on, torch's thread count);
+then the
 spread's context (the medians of the thread time and of both probes;
 corr: Pearson correlations of the reps' ms with the host records and
 probes) and seconds since main() began (main_s).
@@ -78,6 +90,7 @@ import torch
 import chip_smoke
 from chip_smoke import PRODUCT, QUALITY, WRAPPERS
 from solve_keyframe_pose_graph_tpu_torch.certify import HARNESS_REF
+from solve_keyframe_pose_graph_tpu_torch.ops import graphs
 from solve_keyframe_pose_graph_tpu_torch.ops.lm import lm_solve
 
 FP64_AGREEMENT = 1e-3       # chi^2 against its fp64 re-evaluation, relative
@@ -145,7 +158,8 @@ def correlations(recs: list) -> dict:
     """Pearson correlation of the reps' ms with each host record."""
     ms = np.array([r["ms"] for r in recs])
     out = {}
-    for key in ("thread_ms", "gc_ms", "python_probe_ms", "launch_probe_us"):
+    for key in ("thread_ms", "gc_ms", "replay_host_ms", "python_probe_ms",
+                "launch_probe_us"):
         v = np.array([r[key] for r in recs], dtype=float)
         ok = len(ms) > 2 and ms.std() > 0 and v.std() > 0
         out[key] = float(np.corrcoef(ms, v)[0, 1]) if ok else None
@@ -231,6 +245,7 @@ def timed_rep(prob, dev, clock: GcClock) -> tuple:
     for w in WRAPPERS.values():
         w.launches = 0
     gc_counts, gc_s = list(clock.counts), clock.seconds
+    replay_s = sum(graphs.REPLAY_S.values())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     w0, c0 = time.perf_counter(), time.thread_time()
@@ -244,6 +259,7 @@ def timed_rep(prob, dev, clock: GcClock) -> tuple:
                thread_share=cpu / wall,
                gc=[a - b for a, b in zip(clock.counts, gc_counts)],
                gc_ms=(clock.seconds - gc_s) * 1e3,
+               replay_host_ms=(sum(graphs.REPLAY_S.values()) - replay_s) * 1e3,
                reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20,
                **probe, launches={k: w.launches for k, w in WRAPPERS.items()})
     return res, chi2, rec
@@ -285,7 +301,9 @@ def main(argv=None) -> int:
 
     seen = set()
     warmup_ms = []
+    built = len(graphs.LOG)
     for i in range(args.warmup):             # the first builds the kernels
+                                             # and captures the graphs
         t0 = time.perf_counter()
         res, chi2 = solve(prob)
         warmup_ms.append((time.perf_counter() - t0) * 1e3)
@@ -295,6 +313,12 @@ def main(argv=None) -> int:
                        reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20,
                        at_s=at())
 
+    builds = graphs.LOG[built:]
+    if len(builds) != 1:
+        fail(f"the warm-ups built {len(builds)} graph programs, not 1")
+    capture = {k: builds[0][k] for k in (
+        "warmup_s", "capture_s", "instantiate_s", "pool_bytes")}
+    chip_smoke.say("capture", **capture, at_s=at())
     clock = GcClock()
     gc.collect()
     before = gpu_sample(dev.index)
@@ -315,9 +339,12 @@ def main(argv=None) -> int:
         gc.callbacks.remove(clock)
     after = gpu_sample(dev.index)
     chip_smoke.say("clocks", when="after", **after, at_s=at())
+    if len(graphs.LOG) != built + 1:
+        fail(f"the reps captured {len(graphs.LOG) - built - 1} programs")
 
-    prof = chip_smoke.device_profile(lambda: seen.add(fingerprint(*solve(
-        prob))))
+    traced = []
+    prof = chip_smoke.device_profile(lambda: traced.append(solve(prob)))
+    seen.add(fingerprint(*traced[0]))
     if len(seen) != 1:
         fail(f"the solves differ (chi^2 hex, LM, accepted, CG): {seen}")
     for v in (res.q, res.t, res.switch):
@@ -333,6 +360,16 @@ def main(argv=None) -> int:
     if not chi2_passes(chi2, bar):
         fail(f"chi^2 {chi2} above the bar {bar} (reference {ref})")
 
+    # the counters add each replayed graph's captured launches; the
+    # profiler sees the launches that ran on the card
+    want = chip_smoke.solve_launches(traced[0][0],
+                                     PRODUCT["max_cg_iterations"])
+    seen_launches = {"band_matvec": prof["k1"]["launches"],
+                     "gj_inv": prof["k2"]["launches"]}
+    if seen_launches != want or want != recs[-1]["launches"]:
+        fail(f"the traced solve ran {seen_launches} launches on the card; "
+             f"its LM and CG counts imply {want}, and the counters counted "
+             f"{recs[-1]['launches']} in the last rep")
     ms = [r["ms"] for r in recs]
     stats = summary(ms)
     chip_smoke.say("traced", **{k: (json.dumps(v, separators=(",", ":"))
@@ -353,6 +390,8 @@ def main(argv=None) -> int:
         cg_iterations=int(res.total_cg_iterations),
         k1_launches=recs[-1]["launches"]["band_matvec"],
         k2_launches=recs[-1]["launches"]["gj_inv"],
+        k1_launches_traced=seen_launches["band_matvec"],
+        k2_launches_traced=seen_launches["gj_inv"],
         device_ms=prof["device_ms"], idle_share=prof["idle_share"],
         idle_share_of_median=1.0 - prof["device_ms"] / stats["median"],
         traced_wall_ms=prof["profiled_wall_ms"],
@@ -360,7 +399,7 @@ def main(argv=None) -> int:
         **{k + "_median": float(np.median([r[k] for r in recs]))
            for k in ("python_probe_ms", "launch_probe_us")},
         gc_ms_total=sum(r["gc_ms"] for r in recs), warmup_ms=warmup_ms,
-        host=host, corr=correlations(recs), main_s=at())), flush=True)
+        capture=capture, host=host, corr=correlations(recs), main_s=at())), flush=True)
     return 0
 
 

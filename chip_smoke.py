@@ -4,7 +4,9 @@
     python3 chip_smoke.py          (from the repository root)
 
 Phases, one printed line each (or a few):
-  1. device: requires CUDA and prints the card's name and power limit;
+  1. device: requires CUDA and prints the card's name and power limit and
+     its memory state, and opens cuBLAS and cuSOLVER before anything else
+     (waiting up to 120 s while another process holds the card's memory);
   2. build: compiles both hand-written kernels from csrc/ with nvcc;
   3. kernel K1 (band matvec) against its plain PyTorch version on the card,
      at N = 32768 (the capacity ceiling of phase 15), 8192 (the main path),
@@ -24,7 +26,9 @@ Phases, one printed line each (or a few):
      kernels' launch counts, chi^2 (also re-evaluated in fp64) against the
      fp64 exact-step reference, the LM and CG counts and the median time per
      solve; then the same solver on a small graph on the card and on the
-     CPU, which must agree;
+     CPU, which must agree. On the card lm_solve replays the captured CUDA
+     graphs of the problem's bucket (ops/graphs.py), captured by its first
+     call, so every phase from here on times graphed solves;
   6. the streaming engine answering four triggers of a 2,000-node stream,
      after warmup() (which loads the host fp64 rung on its own thread),
      each trigger escalated (forced) to the host rung in the background:
@@ -111,10 +115,27 @@ Phases, one printed line each (or a few):
  17. bench: `bench_torch.py --reps 5` in a process of its own, as a user
      runs it: it exits 0, its last line parses, its chi^2 is within the
      bar (<= 1.02 x 0.4038), each rep launched K1 450 and K2 30 times, and
-     it names this card; its result line is printed on a [bench] line.
+     it names this card; its result line is printed on a [bench] line;
+ 18. graphs: the captured solve against the eager loop
+     (lm._lm_solve_eager): (a) the phase-5 problem graphed (built afresh)
+     and eager, every result field bit for bit, K1 450 / K2 30 per
+     replayed solve, the build's warm-up, capture and instantiation ms and
+     pool MB, 5 reps of each in turns, and one replayed solve under the
+     profiler, whose K1 and K2 launches must equal the counted ones; (b)
+     the same at 30k/30k; (c) phase 9's stream through SolverEngine, eager
+     and then graphed after warmup(5000, 10000, proportional=False): 0
+     captures on the trigger path, the same poses, switches and counts,
+     trigger median and p90 of both; (d) phase 7's mixed rung graphed
+     against eager, bit for bit, K1 and K2 in fp32, profiled as (a).
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
-no result line. Each path of phases 5 and 7-16 is run with the kernels'
-launch counts set to 0 just before it and read just after (phase 17's
+no result line. Each path of phases 5, 7-16 and 18 is run with the kernels'
+launch counts set to 0 just before it and read just after (a graph's
+replay adds what its capture launched; the eager warm-up step with which
+a capture begins launches for real and is counted, and the checks below
+set it aside: PATH_WARMUP. The profiler measures what the counters add:
+in each profiled replayed solve (phases 15, 17 and 18) it must see the
+K1 and K2 launches that the counters counted, and the result line's
+`launches_measured` holds what it saw: PROFILED; phase 17's
 bench counts its own reps in its process; phase 8's
 exact-step self-reference, phase 12's CPU solve and phase 14's unsharded
 references run outside them); where
@@ -155,6 +176,7 @@ from solve_keyframe_pose_graph_tpu_torch.graph import (
 )
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels, band_matvec, gn
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import graphs
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import smallinv
 from solve_keyframe_pose_graph_tpu_torch.ops.lm import lm_solve
@@ -191,6 +213,11 @@ BENCH = ("bench_seed0", "bench_seed1")
 QUALITY = 0.02             # the quality bar: within 2% of the reference
 WRAPPERS = {"band_matvec": band_matvec.band_matvec, "gj_inv": smallinv.gj_inv}
 PATH_LAUNCHES: dict = {}   # path -> {kernel: launches in that path's run}
+PATH_WARMUP: dict = {}     # path -> {C entry point: launches of the eager
+                           # step with which each graph capture in that
+                           # run began (graphs.WARMUP_LAUNCHES)}
+PROFILED: dict = {}        # path -> {kernel: launches the profiler saw in
+                           # one replayed solve of the path}
 
 
 def say(phase: str, **fields) -> None:
@@ -238,12 +265,31 @@ def event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 @contextlib.contextmanager
 def counted(path: str):
     """Run one path of the program with the launch counts set to 0 just
-    before it, and record them just after (all its threads joined)."""
+    before it, and record them just after (all its threads joined), with
+    the launches of the eager warm-up steps of the graphs it captured."""
     for w in WRAPPERS.values():
         w.launches = 0
+    warm = dict(graphs.WARMUP_LAUNCHES)
     yield
     torch.cuda.synchronize()
     PATH_LAUNCHES[path] = {k: w.launches for k, w in WRAPPERS.items()}
+    PATH_WARMUP[path] = {e: n - warm.get(e, 0)
+                         for e, n in graphs.WARMUP_LAUNCHES.items()
+                         if n - warm.get(e, 0)}
+
+
+def kernel_of(entry: str) -> str:
+    """The wrapper of C entry point kpg_<kernel>_<f32|f64>."""
+    return entry[len("kpg_"):].rsplit("_", 1)[0]
+
+
+def net_launches(path: str) -> dict:
+    """A path's launches without its graph captures' warm-up steps: what
+    its solves' LM and CG counts fix."""
+    net = dict(PATH_LAUNCHES[path])
+    for e, n in PATH_WARMUP.get(path, {}).items():
+        net[kernel_of(e)] -= n
+    return net
 
 
 def within_quality(chi2: float, ref: float) -> bool:
@@ -275,8 +321,51 @@ def phase_device() -> str:
     card = card_line()
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, nvidia_smi=repr(card))
+        cuda=torch.version.cuda, nvidia_smi=repr(card), **memory_state())
+    open_library_handles(torch.device("cuda", 0))
     return card
+
+
+def memory_state() -> dict:
+    """The card's free and total memory as this process sees it, and the
+    compute processes that nvidia-smi lists on it (this one included)."""
+    free, total = torch.cuda.mem_get_info(0)
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().replace("\n", "; ")
+    return dict(free_mib=free >> 20, total_mib=total >> 20,
+                reserved_here_mib=torch.cuda.memory_reserved(0) >> 20,
+                compute_apps=repr(apps), pid=os.getpid())
+
+
+def open_library_handles(dev, wait_s: float = 120.0) -> None:
+    """Create this thread's cuBLAS and cuSOLVER handles (a matmul, an
+    inverse, a Cholesky) before any kernel library loads. Creating a
+    handle allocates on the card outside PyTorch's allocator and fails
+    with CUBLAS_STATUS_ALLOC_FAILED when the card's memory is held
+    elsewhere, as another process can still hold it when this run starts:
+    then wait for it, up to `wait_s`, printing the memory state, and fail
+    with that state."""
+    A = torch.eye(30, dtype=torch.float64, device=dev).expand(4, 30, 30)
+    t0 = time.perf_counter()
+    while True:
+        try:
+            float((A @ A).sum() + torch.linalg.inv(A).sum()
+                  + torch.linalg.cholesky_ex(A)[0].sum())
+            break
+        except RuntimeError as e:
+            state = memory_state()
+            say("device", library_handles="failed", error=repr(str(e)[:200]),
+                **state)
+            if time.perf_counter() - t0 > wait_s:
+                raise RuntimeError(f"cuBLAS / cuSOLVER handles could not be "
+                                   f"created within {wait_s} s: {e}; card "
+                                   f"memory {state}") from e
+            torch.cuda.empty_cache()
+            time.sleep(5.0)
+    say("device", library_handles="open",
+        wait_s=round(time.perf_counter() - t0, 3), **memory_state())
 
 
 def phase_build() -> None:
@@ -680,26 +769,22 @@ def phase_engine(dev) -> None:
 
 @contextlib.contextmanager
 def entry_points_taken():
-    """Count the kernel entry points the wrappers take, by name
-    (kpg_band_matvec_f32, ..._f64, kpg_gj_inv_f32, ...): each launch looks
-    its entry point up once on the library _kernels.load returns."""
+    """Count the launches by kernel entry point (kpg_band_matvec_f32,
+    ..._f64, kpg_gj_inv_f32, ...) in the context, from the counters
+    (_kernels.ENTRY_LAUNCHES, to which a graph's replay adds what it
+    launches), without the eager warm-up steps of graph captures."""
     taken: dict = {}
-    real = _kernels.load
-
-    class Lib:
-        def __init__(self, lib):
-            self._lib = lib
-
-        def __getattr__(self, name):
-            if name.endswith(("_f32", "_f64")):
-                taken[name] = taken.get(name, 0) + 1
-            return getattr(self._lib, name)
-
-    _kernels.load = lambda name, entries: Lib(real(name, entries))
+    before = dict(_kernels.ENTRY_LAUNCHES)
+    warm = dict(graphs.WARMUP_LAUNCHES)
     try:
         yield taken
     finally:
-        _kernels.load = real
+        torch.cuda.synchronize()
+        for e, n in _kernels.ENTRY_LAUNCHES.items():
+            n -= before.get(e, 0) + graphs.WARMUP_LAUNCHES.get(e, 0) \
+                - warm.get(e, 0)
+            if n:
+                taken[e] = n
 
 
 def ladder_launches(res, rung: str, stats: dict, cg_cap: int = 45,
@@ -738,7 +823,7 @@ def phase_escalation(dev, card: str, fp32_chi2=None) -> None:
         chi2 = float(res.final_cost)
     check_launches("mixed", solve_launches(res, PRODUCT["max_cg_iterations"]))
     precision = by_precision(taken)
-    if any(v["f64"] or v["f32"] != PATH_LAUNCHES["mixed"][k]
+    if any(v["f64"] or v["f32"] != net_launches("mixed")[k]
            for k, v in precision.items()):
         raise AssertionError(f"the mixed rung's kernels ran {precision}, "
                              f"not all in fp32")
@@ -842,10 +927,13 @@ def solve_launches(res, cg_cap: int, precond_matvecs: int = 0,
 
 
 def check_launches(path: str, want: dict) -> None:
-    got = PATH_LAUNCHES[path]
+    """The path's launches, its graph captures' warm-up steps aside, are
+    what its LM and CG counts imply (`want`), and none is 0."""
+    got = net_launches(path)
     if got != want or not all(want.values()):
-        raise AssertionError(f"{path}: launched {got}, its LM and CG counts "
-                             f"imply {want}")
+        raise AssertionError(f"{path}: launched {PATH_LAUNCHES[path]}, of "
+                             f"them {PATH_WARMUP.get(path)} in graph "
+                             f"warm-ups; its LM and CG counts imply {want}")
 
 
 def phase_two_grid(dev, card: str) -> None:
@@ -958,11 +1046,7 @@ def phase_cli_solve(tmp: str, card: str) -> None:
             chi2, rows, wall = certify.cli_solve(name, "cuda", tmp)
         exact, exact_wall = certify.exact_cli_solve(name, "cuda", tmp)
         row = certify.cli_row(chi2, rows, wall, exact, exact_wall)
-        want = expected_launches(rows)
-        if PATH_LAUNCHES[path] != want or not all(want.values()):
-            raise AssertionError(f"{name}: the CLI solve launched "
-                                 f"{PATH_LAUNCHES[path]}, its rows say "
-                                 f"{want}")
+        check_launches(path, expected_launches(rows))
         jax_cli = certify.JAX_CLI[name]
         if not (within_quality(chi2, jax_cli) and within_quality(chi2, exact)):
             raise AssertionError(f"{name}: CLI chi^2 {chi2} not within "
@@ -1658,6 +1742,29 @@ def device_profile(fn) -> dict:
                      for k, (n, ms) in top])
 
 
+def check_profiled(path: str, prof: dict, want: dict) -> None:
+    """The K1 and K2 launches that the profiler saw on the card in one
+    replayed solve (device_profile) are `want`, what the counters counted
+    for such a solve: the counters add a graph's launches at each replay
+    from its capture's tally, and this measures them. Records them in
+    PROFILED."""
+    seen = {"band_matvec": prof["k1"]["launches"],
+            "gj_inv": prof["k2"]["launches"]}
+    PROFILED[path] = seen
+    if seen != want:
+        raise AssertionError(f"{path}: the profiler saw {seen} launches in a "
+                             f"replayed solve; the counters counted {want}")
+
+
+def profiled_solve(prob, kw: dict) -> tuple:
+    """device_profile over one lm_solve(prob, **kw) and its host read:
+    (profile, result)."""
+    out = []
+    prof = device_profile(lambda: out.append(lm_solve(prob, **kw)) or float(
+        out[0].final_cost))
+    return prof, out[0]
+
+
 def phase_capacity(dev, card: str) -> None:
     """Phase 15 (see the module note)."""
     n, loops, n_cap, e_cap = CAPACITY
@@ -1709,7 +1816,9 @@ def phase_capacity(dev, card: str) -> None:
         spread_ms=float(max(times) - min(times)),
         all_ms=json.dumps([round(t, 3) for t in times]),
         max_memory_allocated=peak, card=repr(card))
-    prof = device_profile(lambda: float(lm_solve(prob, **PRODUCT).final_cost))
+    prof, res = profiled_solve(prob, PRODUCT)
+    check_profiled("capacity", prof, solve_launches(
+        res, PRODUCT["max_cg_iterations"]))
     say("capacity-profile", **{k: (json.dumps(v, separators=(",", ":"))
                                    if isinstance(v, (dict, list)) else v)
                                for k, v in prof.items()},
@@ -1875,12 +1984,15 @@ def phase_bench(card: str) -> None:
                              f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     res = json.loads(lines[-1])
     per_rep = {"band_matvec": res["k1_launches"], "gj_inv": res["k2_launches"]}
+    PROFILED["bench"] = {"band_matvec": res["k1_launches_traced"],
+                         "gj_inv": res["k2_launches_traced"]}
     name = card.splitlines()[0].partition(",")[0].strip()
     checks = dict(
         metric=res["metric"] == "lm_solve_5k10k_ms",
         reps=res["reps"] == len(res["all_ms"]) == BENCH_REPS,
         chi2=math.isfinite(res["chi2"]) and res["chi2"] <= 1.02 * CHI2_REF,
-        launches=per_rep == {"band_matvec": 450, "gj_inv": 30},
+        launches=per_rep == PROFILED["bench"] == {"band_matvec": 450,
+                                                  "gj_inv": 30},
         card=res["card"] == name, backend=res["backend"] == "cuda")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1890,9 +2002,202 @@ def phase_bench(card: str) -> None:
     say("bench", process_wall_s=round(wall, 3), result=lines[-1])
 
 
+def same_result(a, b) -> bool:
+    """Every field of two LMResults equal, bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """CUDA-event ms of `reps` calls of each fn, in turns (the order
+    alternates from one round to the next)."""
+    times = {k: [] for k in fns}
+    names = list(fns)
+    for i in range(reps):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            times[k] += timed_solves(fns[k], reps=1)
+    return times
+
+
+def graphed_against_eager(prob, kw: dict, tag: str, card: str) -> dict:
+    """Phase 18 (a), (b), (d): lm_solve(prob, **kw) through a Program built
+    for it (the cache emptied first, so that the build is measured) and
+    replayed, against the eager loop on the same problem: every result
+    field bit for bit, the launches of each run as its LM and CG counts
+    imply (a replay captures nothing), the build's costs, 5 reps of each in
+    turns, and one profiled replayed solve, in which the profiler must see
+    the launches that the counters counted (check_profiled)."""
+    graphs.clear()
+    with counted(f"{tag}-eager"):
+        eager = lm_ops._lm_solve_eager(prob, **kw)
+        float(eager.final_cost)
+    built = len(graphs.LOG)
+    with counted(f"{tag}-capture"):
+        t0 = time.perf_counter()
+        first = lm_solve(prob, **kw)
+        float(first.final_cost)
+        first_s = time.perf_counter() - t0
+    if len(graphs.LOG) != built + 1:
+        raise AssertionError(f"{tag}: {len(graphs.LOG) - built} builds")
+    rec = graphs.LOG[built]
+    replays = dict(graphs.REPLAYS)
+    with counted(tag), entry_points_taken() as taken:
+        res = lm_solve(prob, **kw)
+        float(res.final_cost)
+    want = solve_launches(res, kw["max_cg_iterations"])
+    for path in (f"{tag}-eager", f"{tag}-capture", tag):
+        check_launches(path, want)
+    steps = graphs.REPLAYS["step"] - replays["step"]
+    if (PATH_WARMUP.get(tag) or steps != int(res.iterations)
+            or graphs.REPLAYS["init"] - replays["init"] != 1):
+        raise AssertionError(f"{tag}: the replayed solve warmed "
+                             f"{PATH_WARMUP.get(tag)}, replayed {steps} "
+                             f"steps for {int(res.iterations)} LM iterations")
+    if not (same_result(res, eager) and same_result(first, eager)):
+        diff = {f: float((getattr(res, f).double()
+                          - getattr(eager, f).double()).abs().max())
+                for f in lm_ops.LMResult._fields}
+        raise AssertionError(f"{tag}: graphed and eager results differ: "
+                             f"{diff}")
+    times = in_turns({"eager": lambda: float(lm_ops._lm_solve_eager(
+        prob, **kw).final_cost), "graphed": lambda: float(lm_solve(
+            prob, **kw).final_cost)}, reps=5)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    out = dict(chi2=float(res.final_cost), initial_cost=float(
+        res.initial_cost), lm_iterations=int(res.iterations),
+        accepted=int(res.successful_steps),
+        cg_iterations=int(res.total_cg_iterations),
+        distress_rejects=int(res.distress_rejects), bit_equal_to_eager=True,
+        launches_per_solve=json.dumps(PATH_LAUNCHES[tag],
+                                      separators=(",", ":")),
+        by_precision=json.dumps(by_precision(taken), separators=(",", ":")),
+        warmup_ms=rec["warmup_s"] * 1e3, capture_ms=rec["capture_s"] * 1e3,
+        instantiate_ms=rec["instantiate_s"] * 1e3,
+        first_solve_ms=first_s * 1e3,
+        pool_mb=rec["pool_bytes"] / 2 ** 20,
+        init_pool_mb=rec["init_pool_bytes"] / 2 ** 20,
+        step_pool_mb=rec["step_pool_bytes"] / 2 ** 20,
+        median_ms_graphed=med["graphed"], median_ms_eager=med["eager"],
+        speedup=med["eager"] / med["graphed"],
+        graphed_ms=json.dumps([round(t, 3) for t in times["graphed"]]),
+        eager_ms=json.dumps([round(t, 3) for t in times["eager"]]),
+        card=repr(card))
+    say(tag, **out)
+    prof, prof_res = profiled_solve(prob, kw)
+    if not same_result(prof_res, eager):
+        raise AssertionError(f"{tag}: the profiled replay differs")
+    check_profiled(tag, prof, want)
+    say(f"{tag}-profile", **{k: (json.dumps(v, separators=(",", ":"))
+                                 if isinstance(v, (dict, list)) else v)
+                             for k, v in prof.items()},
+        median_ms_graphed=med["graphed"],
+        idle_share_of_median=1.0 - prof["device_ms"] / med["graphed"],
+        card=repr(card))
+    return dict(out, result=res)
+
+
+def graphs_engine(dev, card: str) -> None:
+    """Phase 18 (c): phase 9's stream replayed through SolverEngine, fp32
+    at the product defaults without the escalation ladder and with the
+    trigger's solve on its own thread (no async dispatch), so that two
+    runs can be compared bit for bit: once with every solve eager, once
+    graphed after warmup(5000, 10000, proportional=False) (the full
+    product of buckets: the stream's loops arrive in its second half, in
+    buckets that the proportional ladder leaves out); the graphed run
+    takes no capture on the trigger path, and lands on the eager run's
+    poses, switches and counts."""
+    with tempfile.TemporaryDirectory(prefix="kpg") as tmp:
+        stream = os.path.join(tmp, "stream.json")
+        info = make_stream(stream)
+        rec = store_mod.GraphStore.load_from_json(stream)
+    every = info["events"] // 10
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False),
+        stream=dataclasses.replace(cfg.stream, async_dispatch=False))
+
+    def replay(store, eng):
+        t0 = time.perf_counter()
+        cli.replay_events(rec, store, eng, Composer(store, eng), every)
+        wall = time.perf_counter() - t0
+        poses = np.array([np.concatenate(eng.get_node_pose(i))
+                          for i in range(eng.n_opt_variables())])
+        switches = np.array([eng.get_switch(e) for e in range(
+            eng.store.edge_len)])
+        rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
+        return rows, poses, switches, wall
+
+    store = store_mod.GraphStore(initial_capacity=rec.node_len)
+    with lm_ops._eager_solves():
+        rows_e, poses_e, sw_e, wall_e = replay(
+            store, SolverEngine(store, cfg, device=dev))
+    store = store_mod.GraphStore(initial_capacity=rec.node_len)
+    eng = SolverEngine(store, cfg, device=dev)
+    w0 = time.perf_counter()
+    n_warm = eng.warmup(5000, 10000, proportional=False)
+    warm_s = time.perf_counter() - w0
+    with counted("graphs-engine"):
+        rows, poses, switches, wall = replay(store, eng)
+    check_launches("graphs-engine", expected_launches(rows))
+    captures = [r["trigger_captures"] for r in rows]
+    counts = [(r["lm_iterations"], r["cg_iterations"]) for r in rows]
+    counts_e = [(r["lm_iterations"], r["cg_iterations"]) for r in rows_e]
+    if not (len(rows) >= 5 and not any(captures) and counts == counts_e
+            and np.array_equal(poses, poses_e)
+            and np.array_equal(switches, sw_e)
+            and [r["final_cost"] for r in rows]
+            == [r["final_cost"] for r in rows_e]):
+        raise AssertionError(
+            f"graphed engine: {len(rows)} triggers, captures {captures}, "
+            f"counts {counts} vs eager {counts_e}, poses equal "
+            f"{np.array_equal(poses, poses_e)}, switches equal "
+            f"{np.array_equal(switches, sw_e)}")
+    ws = eng.warmup_stats
+    big = max(ws, key=lambda r: (r["n_cap"], r["e_cap"]))
+    ms, ms_e = ([r["trigger_wall_ms"] for r in x] for x in (rows, rows_e))
+    say("graphs-engine", triggers=len(rows), trigger_captures=sum(captures),
+        warmed_buckets=n_warm, warmup_s=round(warm_s, 3),
+        capture_s_total=round(sum(r["capture_s"] for r in ws), 3),
+        instantiate_s_total=round(sum(r["instantiate_s"] for r in ws), 3),
+        first_replay_s_total=round(sum(r["first_replay_s"] for r in ws), 3),
+        pool_mb_total=round(sum(r["pool_mb"] for r in ws), 1),
+        largest_bucket=json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                       else v) for k, v in big.items()}),
+        bit_equal_to_eager=True, final_chi2=rows[-1]["final_cost"],
+        median_trigger_wall_ms=round(float(np.median(ms)), 3),
+        p90_trigger_wall_ms=round(float(np.percentile(ms, 90)), 3),
+        eager_median_trigger_wall_ms=round(float(np.median(ms_e)), 3),
+        eager_p90_trigger_wall_ms=round(float(np.percentile(ms_e, 90)), 3),
+        replay_wall_s=round(wall, 3), eager_replay_wall_s=round(wall_e, 3),
+        launches=json.dumps(PATH_LAUNCHES["graphs-engine"],
+                            separators=(",", ":")), card=repr(card))
+
+
+def phase_graphs(dev, card: str) -> None:
+    """Phase 18 (see the module note)."""
+    prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
+    a = graphed_against_eager(prob, PRODUCT, "graphs-5k", card)
+    if not (a["lm_iterations"] == 10 and a["cg_iterations"] == 318):
+        raise AssertionError(f"graphed 5k/10k: {a['lm_iterations']} LM / "
+                             f"{a['cg_iterations']} CG")
+    n, loops, n_cap, e_cap = CAPACITY
+    cap = circle_problem(n, loops, n_cap, e_cap, np.float32, dev)
+    b = graphed_against_eager(cap, PRODUCT, "graphs-30k", card)
+    if not within_quality(b["chi2"], CHI2_CAP):
+        raise AssertionError(f"graphed 30k/30k chi^2 {b['chi2']}")
+    del cap
+    graphs_engine(dev, card)
+    d = graphed_against_eager(prob, dict(PRODUCT, precision="mixed"),
+                              "graphs-mixed", card)
+    if json.loads(d["by_precision"]) != {
+            k: {"f32": v, "f64": 0} for k, v in
+            solve_launches(d["result"], 45).items()}:
+        raise AssertionError(f"graphed mixed rung: {d['by_precision']}")
+    graphs.clear()
+
+
 PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
           "replay", "serve", "two-grid", "four-dof", "incremental", "mesh",
-          "capacity", "capacity_stream", "bench")
+          "capacity", "capacity_stream", "bench", "graphs")
 
 
 def main(argv=None) -> None:
@@ -1945,6 +2250,8 @@ def main(argv=None) -> None:
         phase_capacity_stream(dev, card)
     if run("bench"):
         phase_bench(card)
+    if run("graphs"):
+        phase_graphs(dev, card)
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return
@@ -1955,12 +2262,16 @@ def main(argv=None) -> None:
              source="solve_keyframe_pose_graph_tpu_torch/csrc/band_matvec.cu",
              replaces="solve_keyframe_pose_graph_tpu/ops/pallas_band.py:77",
              launches=sum(by_path["band_matvec"].values()),
-             launches_by_path=by_path["band_matvec"], **k1),
+             launches_by_path=by_path["band_matvec"],
+             launches_measured={p: n["band_matvec"]
+                                for p, n in PROFILED.items()}, **k1),
         dict(name="gj_inv", route="cuda",
              source="solve_keyframe_pose_graph_tpu_torch/csrc/gj_inv.cu",
              replaces="solve_keyframe_pose_graph_tpu/ops/smallinv.py:74",
              launches=sum(by_path["gj_inv"].values()),
-             launches_by_path=by_path["gj_inv"], **k2),
+             launches_by_path=by_path["gj_inv"],
+             launches_measured={p: n["gj_inv"] for p, n in PROFILED.items()},
+             **k2),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -296,11 +296,12 @@ def cmd_serve(args):
     server = PoseGraphServer(store, cfg, save_dir=args.save_dir or None,
                              load_dir=args.load_dir or None, device=dev)
     if args.warmup_nodes:
-        # builds both kernels and primes one solve at the first bucket, so
-        # the first live trigger pays no nvcc build
-        server.engine.warmup(args.warmup_nodes,
-                             args.warmup_edges or args.warmup_nodes)
-        server.logger.info("kernels built, first bucket primed")
+        # builds both kernels and, on the card, captures the graphs of
+        # every bucket of the ladder up to these sizes before the server
+        # starts, so that live triggers in them replay and pay no build
+        n = server.engine.warmup(args.warmup_nodes,
+                                 args.warmup_edges or args.warmup_nodes)
+        server.logger.info("kernels built, %d capacity buckets warmed", n)
     server.serve(args.socket)
     return 0
 
@@ -398,9 +399,10 @@ def main(argv=None):
     p.add_argument("--load-dir", default="")
     p.add_argument("--native", action="store_true")
     p.add_argument("--warmup-nodes", type=int, default=0,
-                   help="build the kernels and prime one solve before "
-                        "serving (nonzero: on; checked against the node "
-                        "ceiling)")
+                   help="build the kernels and, on the card, capture the "
+                        "solve's graphs for the capacity buckets up to this "
+                        "size before serving (nonzero: on; checked against "
+                        "the node ceiling)")
     p.add_argument("--warmup-edges", type=int, default=0)
     p.add_argument("--async-dispatch", dest="async_dispatch",
                    action="store_true",

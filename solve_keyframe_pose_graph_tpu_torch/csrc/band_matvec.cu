@@ -49,6 +49,7 @@ namespace {
 constexpr int kTile = 32;                      // node columns per block
 constexpr int kThreads = 6 * kTile;            // one thread per output
 constexpr int kBStageBytes = 64 * 1024;        // B staged per group, at most
+constexpr int kMaxFanout = 32;                 // ops/band_matvec.py MAX_FANOUT
 
 // Asynchronous global -> shared copy of Bytes bytes (4, 8 or 16); the
 // source is read only when `full`, else the destination is zero-filled.
@@ -159,24 +160,47 @@ size_t smem_bytes(int H, int G) {
                       static_cast<size_t>(G) * 36 * (kTile + H));
 }
 
+// The staging of one launch: the halo H, the offsets staged per group G
+// and the dynamic shared memory of a block.
+struct Staging {
+  int H, G;
+  size_t smem;
+};
+
 template <typename T, bool Aligned>
-int launch_as(const T* D, const T* B, const T* x, T* y, int F, int N,
-              cudaStream_t stream) {
+Staging staging(int F) {
   constexpr int V = Aligned ? 16 / static_cast<int>(sizeof(T)) : 1;
   const int H = (F + V - 1) / V * V;           // halo, whole copies
   const size_t per_f = sizeof(T) * 36 * static_cast<size_t>(kTile + H);
   int G = static_cast<int>(kBStageBytes / per_f);
   G = G < 1 ? 1 : (G > F ? F : G);             // 0 when F == 0
-  const size_t smem = smem_bytes<T>(H, G);
-  auto kernel = band_matvec_kernel<T, Aligned>;
-  if (smem > 48 * 1024) {                      // above 48 KB only by opt-in
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  return {H, G, smem_bytes<T>(H, G)};
+}
+
+// Opt the kernel instance in to the most dynamic shared memory any F <=
+// kMaxFanout needs (above 48 KB only by opt-in). Once per device, when the
+// library loads (kpg_band_matvec_init), never at a launch: a launch may be
+// captured into a CUDA graph.
+template <typename T, bool Aligned>
+cudaError_t opt_in_smem() {
+  size_t most = 0;
+  for (int F = 0; F <= kMaxFanout; ++F) {
+    const size_t s = staging<T, Aligned>(F).smem;
+    most = s > most ? s : most;
   }
+  if (most <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(band_matvec_kernel<T, Aligned>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(most));
+}
+
+template <typename T, bool Aligned>
+int launch_as(const T* D, const T* B, const T* x, T* y, int F, int N,
+              cudaStream_t stream) {
+  const Staging st = staging<T, Aligned>(F);
   const int grid = (N + kTile - 1) / kTile;
-  kernel<<<grid, kThreads, smem, stream>>>(D, B, x, y, F, N, H, G);
+  band_matvec_kernel<T, Aligned><<<grid, kThreads, st.smem, stream>>>(
+      D, B, x, y, F, N, st.H, st.G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,7 +222,16 @@ int launch(const T* D, const T* B, const T* x, T* y, int F, int N,
 
 // Plain C entry points for ctypes. Pointers are device pointers of
 // contiguous tensors; the launch is asynchronous on `stream`. Returns the
-// cudaGetLastError() code right after the launch (0 = success).
+// cudaGetLastError() code right after the launch (0 = success). Call
+// kpg_band_matvec_init once on each device first.
+extern "C" int kpg_band_matvec_init() {
+  cudaError_t e = opt_in_smem<float, true>();
+  if (e == cudaSuccess) e = opt_in_smem<float, false>();
+  if (e == cudaSuccess) e = opt_in_smem<double, true>();
+  if (e == cudaSuccess) e = opt_in_smem<double, false>();
+  return static_cast<int>(e);
+}
+
 extern "C" int kpg_band_matvec_f32(const float* D, const float* B,
                                    const float* x, float* y, int F, int N,
                                    void* stream) {

@@ -10,11 +10,20 @@ and is loaded with ctypes. The file name carries a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one is reused. The build
 directory `solve_keyframe_pose_graph_tpu_torch/_build/` is not versioned.
 Nothing is built when a module is imported, and a missing or failing nvcc
-raises with nvcc's own error output.
+raises with nvcc's own error output. A library's one-time set-up on a device
+(`load(..., init=, device=)`) runs there before its first launch, so that a
+launch makes no CUDA call but the launch itself and may be captured into a
+CUDA graph (ops/graphs.py).
+
+Launch counts: each wrapper counts its launches on itself (`launches`) and
+by C entry point (ENTRY_LAUNCHES). A launch made while its thread captures a
+graph does not run then: it goes into the capture's tally (capturing()),
+which ops/graphs.py adds to the counts at each replay (add_launches).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_inited: set = set()                 # (library name, device index)
+_tls = threading.local()
+ENTRY_LAUNCHES: dict[str, int] = {}  # C entry point -> launches
 
 
 class KernelError(RuntimeError):
@@ -88,10 +100,12 @@ def build(name: str) -> str:
     return out
 
 
-def load(name: str, entries: dict[str, list]) -> ctypes.CDLL:
+def load(name: str, entries: dict[str, list], init: str | None = None,
+         device: torch.device | None = None) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu (built on first call), with
     argtypes set for each entry point (all return an int CUDA error code)
-    and for its `kpg_<name>_error_string`."""
+    and for its `kpg_<name>_error_string`. With `init`, the library's
+    set-up entry (no arguments) has run once on `device`."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -107,6 +121,12 @@ def load(name: str, entries: dict[str, list]) -> ctypes.CDLL:
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _libs[name] = lib
+        if init is not None and (name, device.index) not in _inited:
+            fn = getattr(lib, init)
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            with torch.cuda.device(device):
+                check(lib, name, fn())
+            _inited.add((name, device.index))
     return lib
 
 
@@ -118,11 +138,43 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
                            f"(cudaError {rc})")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`. The read-modify-write runs under a
+def count_launch(wrapper, entry: str) -> None:
+    """Count one launch of `wrapper` through C entry point `entry`: on the
+    counters, or, while this thread captures a graph, in the capture's
+    tally. A launch in a capture must have gone into the graph: one on a
+    stream that is not capturing ran once, now, and raises rather than be
+    counted at every replay. The counters' read-modify-write runs under a
     lock: the trigger, async and escalation threads all launch kernels."""
+    tally = getattr(_tls, "tally", None)
+    if tally is not None:
+        if not torch.cuda.is_current_stream_capturing():
+            raise KernelError(
+                f"{entry} launched during a graph capture on a stream that "
+                "is not capturing")
+        tally[wrapper, entry] = tally.get((wrapper, entry), 0) + 1
+    else:
+        add_launches({(wrapper, entry): 1})
+
+
+def add_launches(tally: dict) -> None:
+    """Add a tally {(wrapper, entry): launches} to the counters."""
     with _count_lock:
-        wrapper.launches += 1
+        for (wrapper, entry), n in tally.items():
+            wrapper.launches += n
+            ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + n
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count this thread's launches into a tally, which the context yields,
+    instead of on the counters: around the capture of a CUDA graph, whose
+    launches run only when it is replayed."""
+    tally: dict = {}
+    _tls.tally = tally
+    try:
+        yield tally
+    finally:
+        _tls.tally = None
 
 
 def stream_handle(device: torch.device) -> int:

@@ -87,7 +87,7 @@ def build_band_system(Dh, Bh, group: int):
         c_rows.append(torch.cat(c_blocks, dim=-1))
     A = torch.cat(a_rows, dim=-2)                      # (Mp, d, d)
     C = torch.cat(c_rows, dim=-2)
-    C[0] = 0.0      # super-node 0 has no predecessor
+    C[0].fill_(0.0)   # super-node 0 has no predecessor
     return A, C, n_pad
 
 
@@ -119,7 +119,7 @@ def bcr_factorize(A, C, group: int, max_levels: int | None = None
                  - torch.einsum("mij,mjk,mkl->mil", CoT, Aoinv, Co)
                  - torch.einsum("mij,mjk,mlk->mil", Ce, Aoinv_prev, Ce))
         C_new = -torch.einsum("mij,mjk,mkl->mil", Ce, Aoinv_prev, Co_prev)
-        C_new[0] = 0.0
+        C_new[0].fill_(0.0)
         A, C = A_new, C_new
         m //= 2
         lvl += 1

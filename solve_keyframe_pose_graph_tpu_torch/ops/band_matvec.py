@@ -35,6 +35,7 @@ _ENTRIES = {
     "kpg_band_matvec_f64": [_P, _P, _P, _P, _I, _I, _P],
     "kpg_band_matvec_aligned": [_P, _P, _P, _I, _I],
 }
+INIT = "kpg_band_matvec_init"   # once per device: the shared-memory opt-in
 
 
 def band_matvec_plain(D, B, x):
@@ -72,15 +73,16 @@ def band_matvec(D, B, x):
         return band_matvec_plain(D, B, x)
     if x.device.type != "cuda":
         raise ValueError(f"band_matvec runs on cpu or cuda, not {x.device}")
-    lib = _kernels.load("band_matvec", _ENTRIES)
-    fn = (lib.kpg_band_matvec_f32 if x.dtype == torch.float32
-          else lib.kpg_band_matvec_f64)
+    lib = _kernels.load("band_matvec", _ENTRIES, init=INIT, device=x.device)
+    entry = ("kpg_band_matvec_f32" if x.dtype == torch.float32
+             else "kpg_band_matvec_f64")
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = fn(D.data_ptr(), B.data_ptr(), x.data_ptr(), y.data_ptr(),
-                B.shape[0], x.shape[1], _kernels.stream_handle(x.device))
+        rc = getattr(lib, entry)(D.data_ptr(), B.data_ptr(), x.data_ptr(),
+                                 y.data_ptr(), B.shape[0], x.shape[1],
+                                 _kernels.stream_handle(x.device))
     _kernels.check(lib, "band_matvec", rc)
-    _kernels.count_launch(band_matvec)
+    _kernels.count_launch(band_matvec, entry)
     return y
 
 

@@ -22,10 +22,14 @@ import numpy as np
 import torch
 
 from solve_keyframe_pose_graph_tpu_torch.ops import gn as gn_ops
-from solve_keyframe_pose_graph_tpu_torch.solver.problem import Problem
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
+    LoopRows, Problem,
+)
 
-# entry permutation implementing the 6x6 transpose on flat-36 blocks
-_T36 = tuple(6 * (k % 6) + k // 6 for k in range(36))
+
+def _t36(x):
+    """The 6x6 transpose of each flat-36 row of x (K, 36)."""
+    return x.reshape(-1, 6, 6).transpose(-1, -2).reshape(-1, 36)
 
 
 def auto_coarse_group(n_cap: int,
@@ -65,24 +69,40 @@ def build_coarse_inverse(red: gn_ops.ReducedSystemT, problem: Problem,
     (6M, 6M). Frozen and padded nodes contribute +I to their segment's
     diagonal block, inert because the prolongation masks them out. Only the
     live edges' loop rows are summed (masked ones are zero and all alias
-    node 0)."""
-    return build_coarse_inverse_arrays(
+    node 0). Raises when H_c is not positive definite, which reads the
+    factorization's info on the host; the LM body takes
+    build_coarse_inverse_arrays, which returns the info instead."""
+    X, info = build_coarse_inverse_arrays(
         red.Dh, red.Bh, red.Aba_h, problem.loop_b, problem.loop_a,
-        problem.loop_rows_by_node[0], problem.fanout, group)
+        problem.loop_rows_by_node, problem.fanout, group)
+    check_cholesky(info)
+    return X
 
 
-def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a, rows,
-                                fanout: int, group: int) -> torch.Tensor:
-    """build_coarse_inverse from the reduced blocks, summing the loop rows
-    `rows` of cat(b side, a side) in that order (a sorted accumulate, so
-    the sums repeat run to run)."""
+def check_cholesky(info) -> None:
+    """Raise torch.linalg.LinAlgError unless the coarse operator's Cholesky
+    factorization succeeded (info 0; a host read)."""
+    if int(info):
+        raise torch.linalg.LinAlgError(
+            "the coarse operator's Cholesky factorization failed: the "
+            f"leading minor of order {int(info)} is not positive-definite")
+
+
+def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a,
+                                rows: LoopRows, fanout: int, group: int
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """build_coarse_inverse from the reduced blocks, summing the live loop
+    rows of cat(b side, a side) in the grouping's order (a sorted
+    accumulate, so the sums repeat run to run); the masked rows go to
+    dropped slots. Nothing here reads a value on the host: the Cholesky
+    factorization's info comes back beside the inverse, for the caller to
+    read where it already waits for the device."""
     dt, dev = Dh.dtype, Dh.device
     Nc = Dh.shape[-1]
     c = int(group)
     M = -(-Nc // c)
     u = torch.arange(Nc, device=dev)
     seg = u // c
-    perm = torch.tensor(_T36, device=dev)
 
     def seg_sum(rows):
         """Per-segment row sums (nodes are segment-contiguous)."""
@@ -101,31 +121,40 @@ def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a, rows,
         cross = ((u % c) <= f) & (u >= f + 1)
         BTc = BT * cross[:, None]
         in_sum = seg_sum(BT - BTc)
-        Hdiag = Hdiag + in_sum + in_sum[:, perm]
+        Hdiag = Hdiag + in_sum + _t36(in_sum)
         Hsub = Hsub + seg_sum(BTc)
 
-    Hc = torch.zeros((M, M, 36), dtype=dt, device=dev)
+    # the M x M blocks, then the slots that take the masked loop rows, as
+    # many as the grouping has trailing segments: the accumulate sums each
+    # slot's rows one after another, so that no slot gets more than a
+    # segment's worth (solver/problem.py LoopRows)
+    spare = max(1, rows.lengths.shape[0] - rows.n)
+    Hc = torch.zeros((M * M + spare, 36), dtype=dt, device=dev)
+    blocks = Hc[:M * M].view(M, M, 36)
     s = torch.arange(M, device=dev)
-    Hc[s, s] = Hdiag
-    Hc[s[1:], s[:-1]] = Hsub[1:]                       # seg 0 has no s-1
-    Hc[s[:-1], s[1:]] = Hsub[1:, perm]
-    Hc = Hc.reshape(M * M, 36)
+    blocks[s, s] = Hdiag
+    blocks[s[1:], s[:-1]] = Hsub[1:]                   # seg 0 has no s-1
+    blocks[s[:-1], s[1:]] = _t36(Hsub[1:])
 
     # loop blocks couple arbitrary segment pairs
     sb = seg[loop_b]
     sa = seg[loop_a]
     AT = Aba_h.T                                       # (Ec, 36)
-    Hc.index_put_((torch.cat([sb * M + sa, sa * M + sb])[rows],),
-                  torch.cat([AT, AT[:, perm]])[rows], accumulate=True)
+    pos = torch.arange(rows.order.shape[0], device=dev)
+    slot = torch.where(pos < rows.lengths[:rows.n].sum(),
+                       torch.cat([sb * M + sa, sa * M + sb])[rows.order],
+                       M * M + pos % spare)
+    Hc.index_put_((slot,), torch.cat([AT, _t36(AT)])[rows.order],
+                  accumulate=True)
 
-    H = (Hc.reshape(M, M, 6, 6)
+    H = (Hc[:M * M].reshape(M, M, 6, 6)
            .permute(0, 2, 1, 3)
            .reshape(6 * M, 6 * M))
     # fp32 safety jitter relative to the (Jacobi-scaled ~ O(1)) diagonal
     eye = torch.eye(6 * M, dtype=dt, device=dev)
     H = H + (1e-5 * torch.mean(torch.diagonal(H))) * eye
 
-    L = torch.linalg.cholesky(H)
+    L, info = torch.linalg.cholesky_ex(H)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     X = Linv.T @ Linv
     # two Newton refinement steps X <- X (2I - H X), symmetrized: kept for
@@ -134,7 +163,7 @@ def build_coarse_inverse_arrays(Dh, Bh, Aba_h, loop_b, loop_a, rows,
     for _ in range(2):
         X = X @ (2.0 * eye - H @ X)
         X = 0.5 * (X + X.T)
-    return X
+    return X, info
 
 
 def coarse_apply(Hc_inv, free_mask, r_n, group: int):

@@ -31,25 +31,34 @@ import torch
 from solve_keyframe_pose_graph_tpu_torch.ops import residuals as res
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import Problem
 
-# flat-36 slots of the 6x6 diagonal, and the entry permutation implementing
-# the 6x6 transpose on flat-36 blocks
+# flat-36 slots of the 6x6 diagonal (the rows D[DIAG], a strided view of
+# the (36, N) entry-major blocks: no index tensor, so no host-to-device copy
+# in the LM body)
 DIAG36 = tuple(range(0, 36, 7))
-_II = tuple(k // 6 for k in range(36))
-_JJ = tuple(k % 6 for k in range(36))
+DIAG = slice(0, 36, 7)
 
 
-def _idx(ix, device) -> torch.Tensor:
-    return torch.tensor(ix, dtype=torch.long, device=device)
+def rows_i(x):
+    """(6, N) -> (36, N) with row 6i+j = x[i] (the entry's row index)."""
+    return x.unsqueeze(1).expand(6, 6, x.shape[-1]).reshape(36, x.shape[-1])
+
+
+def rows_j(x):
+    """(6, N) -> (36, N) with row 6i+j = x[j] (the entry's column index)."""
+    return x.unsqueeze(0).expand(6, 6, x.shape[-1]).reshape(36, x.shape[-1])
 
 
 def scatter_loop_rows(problem: Problem, vb, va):
     """(Nc, C) with row u = the sum of vb[e] over the live loop edges whose
     b endpoint is u and of va[e] over those whose a endpoint is u; vb, va
     (Ec, C), zero on masked edges. Each node's rows are summed in edge
-    order (b side first), so the result is the same on every run."""
-    order, counts = problem.loop_rows_by_node
-    return torch.segment_reduce(torch.cat([vb, va])[order], "sum",
-                                lengths=counts, axis=0, unsafe=True)
+    order (b side first), so the result is the same on every run; the
+    masked edges' trailing segments are dropped (solver/problem.py
+    LoopRows)."""
+    rows = problem.loop_rows_by_node
+    return torch.segment_reduce(torch.cat([vb, va])[rows.order], "sum",
+                                lengths=rows.lengths, axis=0,
+                                unsafe=True)[:rows.n]
 
 
 def shift_down(x, f):
@@ -74,7 +83,7 @@ def shift_lanes_up(x, f):
 
 def _eyecol(dtype, device) -> torch.Tensor:
     e = torch.zeros(36, dtype=dtype, device=device)
-    e[list(DIAG36)] = 1.0
+    e[DIAG].fill_(1.0)
     return e
 
 
@@ -87,7 +96,7 @@ def _odo_inputs(problem: Problem, q, t):
     t2 = torch.stack([shift_down(t, f + 1) for f in range(F)])
     # padded slots hold zero quats; use identity there
     ident = torch.zeros_like(q2)
-    ident[..., 3] = 1.0
+    ident[..., 3].fill_(1.0)
     q2 = torch.where(torch.sum(q2 * q2, dim=-1, keepdim=True) < 0.5,
                      ident, q2)
     return q1, t1, q2, t2
@@ -340,29 +349,27 @@ def schur_eliminate_t(gn: GNBlocksT, problem: Problem, scale_n, scale_s,
     (parallel/sharded_lm.py) runs it on each shard, sums the Schur
     corrections that landed on other shards' nodes into their owners, and
     projects after that."""
-    dev = gn.D.device
-    ii, jj = _idx(_II, dev), _idx(_JJ, dev)
-    si = scale_n[ii]                   # (36, Nc)
-    sj = scale_n[jj]
+    si = rows_i(scale_n)               # (36, Nc)
+    sj = rows_j(scale_n)
     Dh = gn.D * si * sj
-    Dh.index_add_(0, _idx(DIAG36, dev), lm_n)
-    Bh = torch.stack([gn.B[f] * si * shift_lanes_down(scale_n, f + 1)[jj]
+    Dh[DIAG] += lm_n
+    Bh = torch.stack([gn.B[f] * si * rows_j(shift_lanes_down(scale_n, f + 1))
                       for f in range(problem.fanout)])
 
     snT = scale_n.T                    # (Nc, 6)
     sb = snT[problem.loop_b].T         # (6, Ec)
     sa = snT[problem.loop_a].T
-    Aba_h = gn.Aba * sb[ii] * sa[jj]
+    Aba_h = gn.Aba * rows_i(sb) * rows_j(sa)
     chb = gn.cb * sb * scale_s[None, :]
     cha = gn.ca * sa * scale_s[None, :]
     ds_inv = 1.0 / (gn.ds * scale_s * scale_s + lm_s)
 
     # Schur corrections
     w = ds_inv[None, :]
-    corr_b = -(w * chb)[ii] * chb[jj]              # (36, Ec)
-    corr_a = -(w * cha)[ii] * cha[jj]
+    corr_b = -rows_i(w * chb) * rows_j(chb)        # (36, Ec)
+    corr_a = -rows_i(w * cha) * rows_j(cha)
     Dh = Dh + scatter_loop_rows(problem, corr_b.T, corr_a.T).T
-    Aba_h = Aba_h - (w * chb)[ii] * cha[jj]
+    Aba_h = Aba_h - rows_i(w * chb) * rows_j(cha)
 
     rhs_s = -gn.g_s * scale_s
     rhs_n = -gn.g_n * scale_n

@@ -30,7 +30,14 @@ On a CUDA problem every reduced matvec's band part runs kernel K1 and every
 BCR inverse kernel K2: the wrappers dispatch on the tensors' device, which
 replaces the reference's backend switch (lm.py:172-177). The LM loop reads
 its `done` flag on the host once per iteration, so a solve synchronises at
-most max_iterations + 1 times; CG never synchronises. The loop body reaches
+most max_iterations + 1 times; CG never synchronises, and nothing in the
+setup or the loop body reads a value on the host or copies one from it.
+That makes them capturable: lm_solve solves a CUDA Problem through
+ops/graphs.py, which captures the setup and one LM iteration as two CUDA
+graphs per capacity bucket and solver configuration (the counterpart of
+the reference's compiled, cached solve program, lm.py:493-842) and replays
+them; a CPU Problem and a problem on a mesh run the same setup and body
+eagerly. The loop body reaches
 the Problem only through an ops object, which also holds the precision's
 two copies: DeviceOps for a Problem, and the one a problem of another
 layout brings (parallel.ShardedProblem.lm_ops, whose vectors are per-shard
@@ -57,11 +64,12 @@ that SolverConfig.fp64_backend selects, as in the reference:
 The device rungs take the caller's dispatch_lock around each LM iteration,
 so a streaming engine's trigger solves wait at most one iteration.
 
-Not ported: the AOT executable cache (eager PyTorch compiles nothing),
-outer_unroll (XLA only), freeze_preconditioner (a measured rejection),
-lm_solve_chunked (lm_solve already runs one LM iteration per dispatch under
-the lock, which is what chunking buys the reference) and the TPU-only
-loop_impl / band_impl / tile_k / matvec_impl variants.
+The reference's AOT executable cache, lm_solve_chunked (one LM iteration
+per dispatch under the lock) and outer_unroll (the LM loop as masked
+straight-line code) are ops/graphs.py's graphs: the step graph is one LM
+iteration, replayed under the lock. Not ported: freeze_preconditioner (a
+measured rejection) and the TPU-only loop_impl / band_impl / tile_k /
+matvec_impl variants.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ import contextlib
 import dataclasses
 import logging
 import math
+import threading
 import time
 from typing import NamedTuple
 
@@ -131,6 +140,9 @@ class _LoopState(NamedTuple):
     cg_trunc: torch.Tensor
     done: torch.Tensor
     tighten: torch.Tensor         # previous step rejected: tighten CG
+    cost0: torch.Tensor           # the cost at the initial guesses
+    fault: torch.Tensor           # bool: a coarse Cholesky factorization
+                                  # failed (raised after the loop)
 
 
 def _dot(a, b):
@@ -166,7 +178,7 @@ def jacobi_scales(D, ds, radius):
     """(scale_n, scale_s, lm_n, lm_s): the Jacobi column scaling of the
     node blocks D (36,N) and switch diagonal ds (E,), and the LM diagonal
     of the SCALED system, clamped as in Ceres."""
-    diag_n = D[list(gn_ops.DIAG36)]                            # (6, N)
+    diag_n = D[gn_ops.DIAG]                                    # (6, N)
     scale_n = 1.0 / (1.0 + torch.sqrt(torch.clamp(diag_n, min=0)))
     scale_s = 1.0 / (1.0 + torch.sqrt(torch.clamp(ds, min=0)))
     lm_n = torch.clamp(diag_n * scale_n * scale_n, MIN_LM_DIAGONAL,
@@ -232,33 +244,37 @@ class DeviceOps:
                                                  Aba_aos)
 
     def precond(self, red: gn_ops.ReducedSystemT, mv):
-        """Preconditioner on (6,Nc) vectors, returning contiguous tensors
-        (the CG direction feeds kernel K1, which takes contiguous input).
-        mv, the reduced matvec, is used by the band*coarse two-grid."""
+        """(apply, info): the preconditioner on (6,Nc) vectors, returning
+        contiguous tensors (the CG direction feeds kernel K1, which takes
+        contiguous input), and the coarse Cholesky factorization's info
+        (None without a coarse level), which the LM loop checks after it
+        ends. mv, the reduced matvec, is used by the band*coarse
+        two-grid."""
         kind = self.preconditioner
         if kind == "identity":
-            return lambda r: r
+            return (lambda r: r), None
         if kind == "jacobi":
             Minv = smallinv.best_inv(gn_ops.t_blocks_to_aos(red.Dh))
-            return lambda r: torch.einsum(
-                "uij,uj->ui", Minv, r.T).T.contiguous()
+            return (lambda r: torch.einsum(
+                "uij,uj->ui", Minv, r.T).T.contiguous()), None
         fac = band_factor(red.Dh, red.Bh, self.bcr_levels)
 
         def band(r):
             return band_ops.band_precond_apply(fac, r.T).T
 
         if kind == "band":
-            return lambda r: band(r).contiguous()
-        group = self.coarse_group
-        Hc_inv = coarse_ops.build_coarse_inverse(red, self.problem, group)
+            return (lambda r: band(r).contiguous()), None
+        group, p = self.coarse_group, self.problem
+        Hc_inv, info = coarse_ops.build_coarse_inverse_arrays(
+            red.Dh, red.Bh, red.Aba_h, p.loop_b, p.loop_a,
+            p.loop_rows_by_node, p.fanout, group)
 
         def coarse(r):
-            return coarse_ops.coarse_apply(Hc_inv, self.problem.free_mask, r,
-                                           group)
+            return coarse_ops.coarse_apply(Hc_inv, p.free_mask, r, group)
 
         if kind == "band+coarse":
-            return lambda r: (band(r) + coarse(r)).contiguous()
-        return lambda r: coarse_ops.two_grid_apply(band, coarse, mv, r)
+            return (lambda r: (band(r) + coarse(r)).contiguous()), info
+        return (lambda r: coarse_ops.two_grid_apply(band, coarse, mv, r)), info
 
     def recover(self, red: gn_ops.ReducedSystemT, x_n):
         return gn_ops.recover_switches_t(red, self.problem, x_n)
@@ -297,7 +313,11 @@ def _lm_setup(
     cg_warm_mult: float,
     precision: str,
 ):
-    """(ops, init_state, body) of the LM loop."""
+    """(ops, init, body) of the LM loop: init() assembles at the initial
+    guesses and returns the loop's first state, body(state) is one LM
+    iteration. Neither reads a value on the host nor copies one from it,
+    and every tensor they make from Python numbers is a fill: so both can
+    be captured (ops/graphs.py)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r}; use one of "
                          f"{PRECISIONS}")
@@ -315,16 +335,24 @@ def _lm_setup(
                     bcr_levels=bcr_levels, coarse_group=coarse_group)
     dt, dev = ops.dtype, ops.device
 
-    def scalar(v):
-        return torch.tensor(v, dtype=dt, device=dev)
+    def scalar(v, dtype=dt):
+        return torch.full((), v, dtype=dtype, device=dev)
 
     tol_base = scalar(cg_tolerance)
     tol_warm = scalar(cg_tolerance * cg_warm_mult)
     tol_tight = scalar(cg_tolerance * 0.1)
 
-    q0, t0, s0 = ops.initial()
-    blocks0 = ops.assemble(q0, t0, s0)
-    cost0 = blocks0.cost
+    def init() -> _LoopState:
+        q0, t0, s0 = ops.initial()
+        blocks0 = ops.assemble(q0, t0, s0)
+        zero_i = scalar(0, torch.int32)
+        no = scalar(False, torch.bool)
+        return _LoopState(
+            q=q0, t=t0, s=s0, blocks=blocks0,
+            cost=blocks0.cost, radius=scalar(initial_radius),
+            decrease_factor=scalar(2.0), k=zero_i, accepted=zero_i,
+            distress=zero_i, cg_total=zero_i, cg_trunc=scalar(0.0),
+            done=no, tighten=no, cost0=blocks0.cost, fault=no)
 
     def body(state: _LoopState) -> _LoopState:
         blocks = ops.lo(state.blocks)       # the linear algebra's dtype
@@ -335,8 +363,10 @@ def _lm_setup(
         # after a rejected step the retry solves CG 10x tighter
         tol_k = torch.where(state.k < cg_warm_iters, tol_warm, tol_base)
         tol_k = torch.where(state.tighten, tol_tight, tol_k)
+        precond, info = ops.precond(red, mv)
+        fault = state.fault if info is None else state.fault | (info != 0)
         sol = pcg_ops.pcg_nodes(
-            mv, ops.precond(red, mv), red.rhs_n,
+            mv, precond, red.rhs_n,
             max_iterations=max_cg_iterations, r_tolerance=tol_k,
             q_tolerance=cg_q_tolerance)
         dxh_n = sol.x                                          # (6, Nc)
@@ -385,7 +415,7 @@ def _lm_setup(
 
         # distress: a rejected step whose candidate cost rose materially
         overshoot = ~accept & (new_cost > state.cost * (1.0 + 1e-3)
-                               + cost0 * 1e-9)
+                               + state.cost0 * 1e-9)
 
         return _LoopState(
             q=torch.where(accept, q_new, state.q),
@@ -399,19 +429,12 @@ def _lm_setup(
             cg_total=state.cg_total + sol.iterations,
             cg_trunc=torch.maximum(state.cg_trunc,
                                    sol.rel_residual / tol_k),
-            done=done,
+            done=done | fault,
             tighten=~accept,
+            cost0=state.cost0,
+            fault=fault,
         )
 
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    init = _LoopState(
-        q=q0, t=t0, s=s0, blocks=blocks0,
-        cost=cost0, radius=scalar(initial_radius),
-        decrease_factor=scalar(2.0), k=zero_i, accepted=zero_i,
-        distress=zero_i, cg_total=zero_i, cg_trunc=scalar(0.0),
-        done=torch.zeros((), dtype=torch.bool, device=dev),
-        tighten=torch.zeros((), dtype=torch.bool, device=dev),
-    )
     return ops, init, body
 
 
@@ -445,43 +468,96 @@ def lm_solve(
     (precision="native"), or with the assembly, cost and parameter state
     in fp64 around a linear algebra in its dtype (precision="mixed", see
     the module note; the result's q, t, switch and costs are then fp64). A
-    parallel.ShardedProblem is solved over its mesh (parallel/
+    Problem on a CUDA device is solved through the captured graphs of its
+    capacity bucket and configuration (ops/graphs.py: captured at first
+    use, replayed after), a CPU Problem by the same loop run eagerly. A
+    parallel.ShardedProblem is solved eagerly over its mesh (parallel/
     sharded_lm.py), with the same mathematics; its result's q, t and switch
     are gathered on the mesh's first device."""
-    # BCR and the coarse solve rely on full-fp32 batched products
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from solve_keyframe_pose_graph_tpu_torch.ops import graphs
+
+    setup = dict(
+        max_cg_iterations=max_cg_iterations, cg_tolerance=cg_tolerance,
+        cg_q_tolerance=cg_q_tolerance, initial_radius=initial_radius,
+        function_tolerance=function_tolerance,
+        parameter_tolerance=parameter_tolerance, renormalize=renormalize,
+        preconditioner=preconditioner, residual_mode=residual_mode,
+        use_switch=use_switch, bcr_levels=bcr_levels,
+        coarse_group=coarse_group, cg_warm_iters=cg_warm_iters,
+        cg_warm_mult=cg_warm_mult, precision=precision)
+    set_backends(problem.device)
+    if not getattr(_eager, "on", False) and graphs.serves(problem):
+        return graphs.solve(problem, setup, max_iterations=max_iterations,
+                            dispatch_lock=dispatch_lock)
     lock = dispatch_lock if dispatch_lock is not None else \
         contextlib.nullcontext()
     with lock:
-        ops, state, body = _lm_setup(
-            problem, max_cg_iterations=max_cg_iterations,
-            cg_tolerance=cg_tolerance, cg_q_tolerance=cg_q_tolerance,
-            initial_radius=initial_radius,
-            function_tolerance=function_tolerance,
-            parameter_tolerance=parameter_tolerance,
-            renormalize=renormalize, preconditioner=preconditioner,
-            residual_mode=residual_mode, use_switch=use_switch,
-            bcr_levels=bcr_levels, coarse_group=coarse_group,
-            cg_warm_iters=cg_warm_iters,
-            cg_warm_mult=cg_warm_mult, precision=precision)
+        ops, init, body = _lm_setup(problem, **setup)
+        state = init()
         done = bool(state.done)
-    cost0 = state.cost
     for _ in range(max_iterations):
         if done:
             break
         with lock:
             state = body(state)
             done = bool(state.done)       # one host sync per LM iteration
+    check_fault(state.fault)
     q, t, s = ops.result(state.q, state.t, state.s)
+    return result(state, q, t, s)
+
+
+def check_fault(fault: torch.Tensor) -> None:
+    """Raise torch.linalg.LinAlgError if a coarse Cholesky factorization of
+    the solve failed: `fault`, the final loop state's flag (a host read,
+    after the loop)."""
+    if bool(fault):
+        raise torch.linalg.LinAlgError(
+            "the coarse operator's Cholesky factorization failed in an LM "
+            "iteration: the coarse operator is not positive-definite")
+
+
+def result(state: _LoopState, q, t, s) -> LMResult:
+    """The LMResult of a final loop state, with its q, t and switch."""
     return LMResult(
         q=q, t=t, switch=s,
-        initial_cost=cost0, final_cost=state.cost,
+        initial_cost=state.cost0, final_cost=state.cost,
         iterations=state.k, successful_steps=state.accepted,
         distress_rejects=state.distress,
         total_cg_iterations=state.cg_total, converged=state.done,
         cg_truncation=state.cg_trunc,
     )
+
+
+def set_backends(device: torch.device) -> None:
+    """The numerics every solve relies on: full-fp32 batched products (BCR
+    and the coarse solve), and on the card cuSOLVER's Cholesky, which
+    reports its info on the device where MAGMA's would synchronise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+
+
+_eager = threading.local()
+
+
+@contextlib.contextmanager
+def _eager_solves():
+    """Within the context, this thread's lm_solve calls run the loop
+    eagerly on any device, never through ops/graphs.py: the reference
+    that the graphs' replays are held to (chip_smoke.py, the tests)."""
+    before = getattr(_eager, "on", False)
+    _eager.on = True
+    try:
+        yield
+    finally:
+        _eager.on = before
+
+
+def _lm_solve_eager(problem, **kw) -> LMResult:
+    """lm_solve run eagerly (see _eager_solves)."""
+    with _eager_solves():
+        return lm_solve(problem, **kw)
 
 
 def needs_escalation(res: LMResult, escalate_rejects: int) -> bool:

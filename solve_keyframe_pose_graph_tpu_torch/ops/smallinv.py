@@ -63,7 +63,7 @@ def block_gj_inv(A, b: int = 6):
         rows = piv_inv @ rows                      # normalize block row
         cols = buf[..., :, r0:r0 + b].clone()      # (..., d, b)
         # the pivot block row is replaced below, not updated
-        cols[..., r0:r0 + b, :] = 0.0
+        cols[..., r0:r0 + b, :].fill_(0.0)
         buf = buf - cols @ rows
         buf[..., r0:r0 + b, :] = rows
     return buf[..., :, d:]
@@ -117,14 +117,14 @@ def gj_inv(A):
         raise ValueError(f"gj_inv runs on cpu or cuda, not {A.device}")
     n = A.numel() // (d * d)
     lib = _kernels.load("gj_inv", _ENTRIES)
-    fn = (lib.kpg_gj_inv_f32 if A.dtype == torch.float32
-          else lib.kpg_gj_inv_f64)
+    entry = ("kpg_gj_inv_f32" if A.dtype == torch.float32
+             else "kpg_gj_inv_f64")
     out = torch.empty(A.shape, dtype=A.dtype, device=A.device)
     with torch.cuda.device(A.device):
-        rc = fn(A.data_ptr(), out.data_ptr(), n, d, stride,
-                _kernels.stream_handle(A.device))
+        rc = getattr(lib, entry)(A.data_ptr(), out.data_ptr(), n, d, stride,
+                                 _kernels.stream_handle(A.device))
     _kernels.check(lib, "gj_inv", rc)
-    _kernels.count_launch(gj_inv)
+    _kernels.count_launch(gj_inv, entry)
     return out
 
 

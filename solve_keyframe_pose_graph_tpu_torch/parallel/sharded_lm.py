@@ -243,6 +243,11 @@ class ShardedOps(lm_ops.DeviceOps):
         return apply
 
     def precond(self, red: gn_ops.ReducedSystemT, mv):
+        """(apply, None): the mesh runs eagerly, so a failed coarse
+        factorization raises here."""
+        return self._precond(red, mv), None
+
+    def _precond(self, red: gn_ops.ReducedSystemT, mv):
         kind = self.preconditioner
         if kind == "identity":
             return lambda r: r
@@ -263,10 +268,13 @@ class ShardedOps(lm_ops.DeviceOps):
             return self._gathered(band)
         group, sp = self.coarse_group, self.sp
         Aba = all_gather(red.Aba_h)
-        Hc_inv = {dev: coarse_ops.build_coarse_inverse_arrays(
-            Dh[dev], Bh[dev], Aba[dev], sp.topology(dev).loop_b,
-            sp.topology(dev).loop_a, sp.topology(dev).loop_rows_by_node[0],
-            sp.fanout, group) for dev in Dh}
+        Hc_inv = {}
+        for dev in Dh:
+            Hc_inv[dev], info = coarse_ops.build_coarse_inverse_arrays(
+                Dh[dev], Bh[dev], Aba[dev], sp.topology(dev).loop_b,
+                sp.topology(dev).loop_a, sp.topology(dev).loop_rows_by_node,
+                sp.fanout, group)
+            coarse_ops.check_cholesky(info)
 
         def coarse(dev, r):
             return coarse_ops.coarse_apply(

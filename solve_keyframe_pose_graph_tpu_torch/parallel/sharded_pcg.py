@@ -38,6 +38,7 @@ from solve_keyframe_pose_graph_tpu_torch.parallel.sharded_lm import (
 from solve_keyframe_pose_graph_tpu_torch.parallel.sharding import (
     Mesh, edge_layout,
 )
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import LoopRows
 
 
 def _dot(a, b):
@@ -86,8 +87,11 @@ def pcg_sharded(Dh, Bh, Aba_h, loop_b, loop_a, rhs, *, mesh: Mesh,
             raise ValueError("coarse_group must divide the per-shard node "
                              f"width ({nl} % {c})")
         rows = torch.arange(2 * loop_b.shape[0], device=Dh.device)
-        Hc = coarse_ops.build_coarse_inverse_arrays(
-            Dh, Bh, Aba_h, loop_b.long(), loop_a.long(), rows, F, c)
+        Hc, info = coarse_ops.build_coarse_inverse_arrays(
+            Dh, Bh, Aba_h, loop_b.long(), loop_a.long(),
+            LoopRows(rows, torch.full((1,), rows.shape[0], device=Dh.device),
+                     1), F, c)
+        coarse_ops.check_cholesky(info)
         Hc_inv = {d: Hc.to(d) for d in mesh.distinct}
         Ml = nl // c
 

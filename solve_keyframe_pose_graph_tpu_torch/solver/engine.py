@@ -39,12 +39,18 @@ device and P CPU shards for the CPU; too few cards raise at construction.
 As in the reference, the mesh path takes the full problem build, shards it
 (parallel.shard_problem) and writes back from the gathered result.
 
-Left out: the reference's XLA compile-stall machinery (bucket ladder
-warmup, bucket cover, sticky tile_k, the host rung's per-bucket traces):
-eager PyTorch compiles nothing per shape, so warmup() builds the two
-kernels and primes one solve at the first bucket, and, on a thread of its
+On a CUDA device (no mesh) each solve replays the captured graphs of its
+capacity bucket (ops/graphs.py), as the reference's trigger runs the
+compiled program of its bucket. warmup() captures them ahead of the stream
+for the reference's bucket ladder (_warmup_pairs), and, on a thread of its
 own, loads the host fp64 rung (the native LDL^T library, built on demand,
-and scipy) when the config can escalate to it.
+and scipy) when the config can escalate to it. A trigger whose bucket is
+not warmed captures its own; each trigger's solve_stats row counts the
+captures its solve took (trigger_captures). The escalation ladder's device
+rungs are captured at first use, not warmed. Eager engines (the CPU, a
+mesh) prime one solve at the first bucket. Left out: the bucket cover,
+sticky tile_k and the host rung's per-bucket traces (the port's host rung
+compiles nothing).
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from solve_keyframe_pose_graph_tpu_torch.utils import nse3
 from solve_keyframe_pose_graph_tpu_torch.utils.timing import PhaseTimer
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import graphs
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.parallel.sharding import (
     Mesh, engine_mesh, shard_problem, split_sizes,
@@ -87,6 +94,45 @@ def _bucket(n: int, initial: int) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+def _warmup_pairs(cap, max_nodes: int, max_edges: int,
+                  proportional: bool = True) -> list:
+    """The (n_cap, e_cap) buckets warmup() captures (a copy of the
+    reference's engine.py:55-95).
+
+    proportional=True prunes the full product down to the buckets a stream
+    growing to (max_nodes, max_edges) with edges in proportion to nodes
+    visits: a monotone staircase on which n_cap and e_cap do not double at
+    the same node. The stream enters n-bucket n_cap at ~n_cap/2 nodes
+    carrying about half that bucket's proportional edge load; every
+    e-bucket from that entry load up to twice the exit load is kept (one
+    doubling of burst headroom). A stream that strays off the kept set
+    captures its own bucket."""
+    pairs = []
+    n_cap = cap.initial_nodes
+    while True:
+        e_cap = cap.initial_edges
+        while e_cap <= max(_bucket(max_edges, cap.initial_edges),
+                           cap.initial_edges):
+            pairs.append((n_cap, e_cap))
+            e_cap *= 2
+        if n_cap >= _bucket(max_nodes, cap.initial_nodes):
+            break
+        n_cap *= 2
+    if proportional and max_edges > cap.initial_edges:
+        n_final = _bucket(max_nodes, cap.initial_nodes)
+        kept = []
+        for n_cap_, e_cap_ in pairs:
+            e_entry = max(int(max_edges * (n_cap_ // 2) / n_final), 1)
+            e_exit = max(
+                int(max_edges * min(n_cap_, max_nodes) / n_final), 1)
+            lo = _bucket(e_entry, cap.initial_edges)
+            hi = 2 * _bucket(e_exit, cap.initial_edges)
+            if lo <= e_cap_ <= hi:
+                kept.append((n_cap_, e_cap_))
+        pairs = kept
+    return pairs
 
 
 def _to_host(res: lm_ops.LMResult, node_len: int, edge_len: int
@@ -161,6 +207,10 @@ class SolverEngine:
         self.n_solve_convergences = 0
         self.last_result: Optional[lm_ops.LMResult] = None
         self.solve_stats: list = []
+        # per warmed bucket: n_cap, e_cap, capture_s, instantiate_s,
+        # first_replay_s, pool_mb (the capture fields None on an eager
+        # engine)
+        self.warmup_stats: list = []
         self.timer = PhaseTimer()
         # worldID -> (old setID, new setID), valid for one trigger
         self._changes_to_setid: Dict[int, Tuple[int, int]] = {}
@@ -340,17 +390,22 @@ class SolverEngine:
                                      node_worlds, tid, t0, build)
                 self.status = 3
                 return True
-            res = self._solve_to_host(problem, kw, node_len, edge_len)
+            res, captures = self._solve_to_host(problem, kw, node_len,
+                                                edge_len)
         self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, t0, build)
+                           tid, t0, dict(build, trigger_captures=captures))
         return True
 
     def _solve_to_host(self, problem: Problem, kw: dict, node_len: int,
                        edge_len: int, stream_ctx=contextlib.nullcontext
-                       ) -> lm_ops.LMResult:
+                       ) -> tuple[lm_ops.LMResult, int]:
+        """The solve's host result, and the graph captures it took (a
+        bucket that warmup() had not captured)."""
         with stream_ctx(), self._device_lock:
-            return _to_host(lm_ops.lm_solve(problem, **kw), node_len,
-                            edge_len)
+            before = graphs.captures_on_this_thread()
+            res = _to_host(lm_ops.lm_solve(problem, **kw), node_len,
+                           edge_len)
+            return res, graphs.captures_on_this_thread() - before
 
     def collect(self) -> bool:
         """Collect an in-flight async solve (waits for it) and write it
@@ -364,9 +419,9 @@ class SolverEngine:
             return False
         (fut, problem, kw, node_len, edge_len, node_worlds, tid, t0,
          build) = pending
-        res = fut.result()
+        res, captures = fut.result()
         self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, t0, build)
+                           tid, t0, dict(build, trigger_captures=captures))
         return True
 
     def drain(self) -> bool:
@@ -716,33 +771,49 @@ class SolverEngine:
     # ------------------------------------------------------------------
 
     def warmup(self, max_nodes: int, max_edges: int,
-               background: bool = False) -> int:
-        """Make the first live trigger pay no kernel build: build both
-        kernels (on a CUDA device) and run one solve of a dummy graph at the
-        first capacity bucket, the one a fresh stream solves in. Eager
-        PyTorch compiles nothing per shape, so there is no bucket ladder;
-        max_nodes and max_edges are checked against the capacity ceilings.
-        background=True runs it on a daemon thread (warmup_join waits).
+               background: bool = False, proportional: bool = True) -> int:
+        """Capture the solve's graphs for every capacity bucket of the
+        reference's ladder up to the given sizes (_warmup_pairs;
+        proportional=False takes every pair of the product), each bucket
+        primed by one solve of a dummy graph through its replays, so that
+        a stream's triggers capture nothing; warmup_stats gets a row per
+        bucket. background=True captures the first bucket, the one a fresh
+        stream solves in, before it returns, and the rest on a daemon
+        thread in increasing bucket order, each under the device lock, so
+        that a live trigger waits for at most one bucket's capture;
+        warmup_join waits for them. Correctness never depends on warmup: a
+        trigger whose bucket is not warmed captures its own. An eager
+        engine (the CPU, a mesh) compiles nothing per bucket: it primes
+        one solve at the first bucket (on the thread, with background).
         When the config can escalate to the host fp64 rung (adaptive_fp64
         on, fp64_backend not "tpu"), that rung is loaded on a thread of its
         own meanwhile (the reference's engine.py:911-937), so that the
         first escalation does not pay for it; warmup_join waits for it too.
-        Returns the number of buckets primed (1)."""
+        Returns the number of buckets warmed (scheduled, with background)."""
         cap = self.config.capacity
         if max_nodes > cap.max_nodes or max_edges > cap.max_edges:
             raise ValueError(
                 f"warmup({max_nodes}, {max_edges}) exceeds the capacity "
                 f"ceilings ({cap.max_nodes}, {cap.max_edges})")
         self._start_host_rung_warm()
+        if self._graphed():
+            pairs = _warmup_pairs(cap, max_nodes, max_edges, proportional)
+            now = pairs[:1]
+        else:
+            pairs = [(cap.initial_nodes, cap.initial_edges)]
+            now = []
         if not background:
-            self._warm_first_bucket()
-            return 1
-        t = threading.Thread(target=self._warm_in_background,
-                             args=(_on_stream(self.device),),
-                             name="kpg-warmup", daemon=True)
-        self._warmup_thread = t
-        t.start()
-        return 1
+            now = pairs
+        for pair in now:
+            self._warm_one(*pair)
+        rest = pairs[len(now):]
+        if rest:
+            t = threading.Thread(target=self._warm_in_background,
+                                 args=(rest, _on_stream(self.device)),
+                                 name="kpg-warmup", daemon=True)
+            self._warmup_thread = t
+            t.start()
+        return len(pairs)
 
     def warmup_join(self, timeout: Optional[float] = None) -> bool:
         """Wait for a background warmup and the host rung's load; True once
@@ -779,15 +850,24 @@ class SolverEngine:
         except Exception:
             log.warning("loading the host fp64 rung failed", exc_info=True)
 
-    def _warm_in_background(self, stream_ctx) -> None:
+    def _warm_in_background(self, pairs, stream_ctx) -> None:
         try:
-            self._warm_first_bucket(stream_ctx)
+            for pair in pairs:
+                self._warm_one(*pair, stream_ctx)
         except BaseException as e:
             log.exception("background warmup failed")
             with self.state_lock:
                 self._bg_error = e
 
-    def _warm_first_bucket(self, stream_ctx=contextlib.nullcontext) -> None:
+    def _graphed(self) -> bool:
+        """Whether this engine's solves replay captured graphs."""
+        return self.mesh is None and graphs.on_card(self.device)
+
+    def _warm_one(self, n_cap: int, e_cap: int,
+                  stream_ctx=contextlib.nullcontext) -> None:
+        """Capture (on a graphed engine) and prime one bucket with a dummy
+        graph at the config's solver settings and the size rule's coarse
+        group; its warmup_stats row."""
         from solve_keyframe_pose_graph_tpu_torch.ops import (
             band_matvec, smallinv,
         )
@@ -797,7 +877,6 @@ class SolverEngine:
             for name, entries in (("band_matvec", band_matvec._ENTRIES),
                                   ("gj_inv", smallinv._ENTRIES)):
                 _kernels.load(name, entries)
-        n_cap, e_cap = cfg.capacity.initial_nodes, cfg.capacity.initial_edges
         g = synthetic.circle_graph(n_nodes=min(64, n_cap),
                                    n_loops=min(8, e_cap), seed=0)
         # priming only: the outcome is irrelevant and must not escalate
@@ -807,23 +886,39 @@ class SolverEngine:
             use_switch=cfg.residual.use_switch_constraints)
         if kw["coarse_group"] is None:
             kw["coarse_group"] = coarse_ops.auto_coarse_group(n_cap)
-        with stream_ctx(), self._device_lock:
-            problem = build_problem_np(
-                q=g.vio_q, t=g.vio_t, vio_q=g.vio_q, vio_t=g.vio_t,
-                node_valid=np.ones(g.n_nodes, bool),
-                loop_pairs=g.loop_pairs, loop_q=g.loop_q, loop_t=g.loop_t,
-                loop_w=g.loop_w, loop_valid=np.ones(g.n_loops, bool),
-                switch=np.full(g.n_loops, cfg.residual.switch_init),
-                prior_idx=np.array([0]), prior_q=g.vio_q[:1],
-                prior_t=g.vio_t[:1], prior_w=np.array([1.1]),
-                n_cap=n_cap, e_cap=e_cap, p_cap=16,
-                fanout=cfg.residual.odometry_fanout,
-                dtype=(np.float64 if cfg.solver.dtype == "float64"
-                       else np.float32),
-                device=self.device)
-            if self.mesh is not None:
-                problem = shard_problem(problem, self.mesh)
-            float(lm_ops.lm_solve(problem, **kw).final_cost)
+        row = dict(n_cap=n_cap, e_cap=e_cap, capture_s=None,
+                   instantiate_s=None, pool_mb=None)
+        with stream_ctx():
+            with self._device_lock:
+                problem = build_problem_np(
+                    q=g.vio_q, t=g.vio_t, vio_q=g.vio_q, vio_t=g.vio_t,
+                    node_valid=np.ones(g.n_nodes, bool),
+                    loop_pairs=g.loop_pairs, loop_q=g.loop_q,
+                    loop_t=g.loop_t, loop_w=g.loop_w,
+                    loop_valid=np.ones(g.n_loops, bool),
+                    switch=np.full(g.n_loops, cfg.residual.switch_init),
+                    prior_idx=np.array([0]), prior_q=g.vio_q[:1],
+                    prior_t=g.vio_t[:1], prior_w=np.array([1.1]),
+                    n_cap=n_cap, e_cap=e_cap, p_cap=16,
+                    fanout=cfg.residual.odometry_fanout,
+                    dtype=(np.float64 if cfg.solver.dtype == "float64"
+                           else np.float32),
+                    device=self.device)
+                if self.mesh is not None:
+                    problem = shard_problem(problem, self.mesh)
+                if graphs.serves(problem):
+                    rec = graphs.prepare(problem, **kw)
+                    row.update(
+                        capture_s=rec["warmup_s"] + rec["capture_s"],
+                        instantiate_s=rec["instantiate_s"],
+                        pool_mb=rec["pool_bytes"] / 2 ** 20,
+                        captured=rec["built"])
+            t0 = time.perf_counter()
+            with self._device_lock:
+                float(lm_ops.lm_solve(problem, **kw).final_cost)
+            row["first_replay_s"] = time.perf_counter() - t0
+        with self.state_lock:
+            self.warmup_stats.append(row)
 
     def run(self, poll_hz: Optional[float] = None, stop_when=None) -> None:
         """Blocking trigger loop (the reference thread's ros::Rate loop)."""

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -108,25 +108,49 @@ class Problem:
         return p
 
     @functools.cached_property
-    def loop_rows_by_node(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(order, counts) for the loop-edge row scatter of ops/gn.py
-        (scatter_loop_rows): `order` lists the rows of cat(b side, a side)
-        of the live loop edges grouped by node, in edge order within a
-        node; `counts` (Nc,) is the number of rows per node. Masked edges
-        carry zero rows and are left out. Built once per Problem on its
-        device (one host sync)."""
+    def loop_rows_by_node(self) -> LoopRows:
+        """The grouping of the loop-edge rows by node for the row scatter of
+        ops/gn.py (scatter_loop_rows); see LoopRows. Built once per Problem
+        on its device, with no host sync."""
         return loop_rows_by_node(self.loop_b, self.loop_a, self.loop_mask,
                                  self.n_cap)
 
 
-def loop_rows_by_node(loop_b, loop_a, loop_mask, n: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+# masked rows per trailing segment of LoopRows
+DUMP_ROWS = 16
+
+
+class LoopRows(NamedTuple):
+    """The rows of cat(b side, a side) of the loop edges, grouped by node
+    for a segment sum (ops/gn.py scatter_loop_rows). `order` (2 Ec,) lists
+    the live edges' rows grouped by node, in edge order within a node, and
+    then the masked edges' rows; `lengths` holds the rows of each of the n
+    nodes, then of ceil(2 Ec / DUMP_ROWS) trailing segments of at most
+    DUMP_ROWS masked rows each, which the scatter computes and drops. Every
+    shape depends only on the capacities, never on the masks, so the
+    grouping of one capacity bucket can live in fixed buffers (ops/
+    graphs.py); and each node sums the same rows in the same order as a
+    grouping of the live rows alone would. The masked rows are spread over
+    short segments because the CUDA segment sum runs one thread per
+    segment and column: one segment of all of them would be a serial sum
+    of up to 2 Ec rows in every call."""
+
+    order: torch.Tensor
+    lengths: torch.Tensor
+    n: int
+
+
+def loop_rows_by_node(loop_b, loop_a, loop_mask, n: int) -> LoopRows:
     """Problem.loop_rows_by_node for loop endpoints on n nodes."""
-    node = torch.cat([loop_b, loop_a]).long()
-    rows = torch.nonzero((loop_mask > 0.5).repeat(2)).squeeze(1)
-    node = node[rows]
-    order = torch.argsort(node, stable=True)
-    return rows[order], torch.bincount(node, minlength=n)
+    live = (loop_mask > 0.5).repeat(2)
+    key = torch.where(live, torch.cat([loop_b, loop_a]).long(), n)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(n + 1, dtype=torch.long, device=key.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    segments = -(-key.shape[0] // DUMP_ROWS)
+    dump = torch.clamp(counts[n] - DUMP_ROWS * torch.arange(
+        segments, device=key.device), 0, DUMP_ROWS)
+    return LoopRows(order, torch.cat([counts[:n], dump]), n)
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Problem))

@@ -15,6 +15,7 @@ import torch
 
 from solve_keyframe_pose_graph_tpu.ops import pallas_band
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels, band_matvec, gn
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import LoopRows
 
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -123,9 +124,9 @@ def test_reduced_matvec_band_part_is_the_wrapper(rng, monkeypatch):
         loop_b = torch.ones(e, dtype=torch.int32)
         # Problem.loop_rows_by_node: the a-side rows land on node 0, the
         # b-side rows on node 1
-        loop_rows_by_node = (torch.cat([torch.arange(e, 2 * e),
-                                        torch.arange(e)]),
-                             torch.tensor([e, e] + [0] * (n - 2)))
+        loop_rows_by_node = LoopRows(
+            torch.cat([torch.arange(e, 2 * e), torch.arange(e)]),
+            torch.tensor([e, e] + [0] * (n - 2)), n)
 
     y = gn.reduced_matvec_t(red, _P, x)
     assert seen == [(6, n)]

@@ -188,6 +188,7 @@ def test_scatter_loop_rows_matches_index_add(rng):
     want = torch.zeros((tp.n_cap, 36), dtype=torch.float64)
     want.index_add_(0, tp.loop_b, vb).index_add_(0, tp.loop_a, va)
     close(tgn.scatter_loop_rows(tp, vb, va), want, rtol=1e-14)
-    order, counts = tp.loop_rows_by_node
-    assert len(order) == int(counts.sum()) == 2 * int(tp.loop_mask.sum())
+    rows = tp.loop_rows_by_node
+    assert len(rows.order) == int(rows.lengths.sum()) == 2 * tp.e_cap
+    assert int(rows.lengths[:rows.n].sum()) == 2 * int(tp.loop_mask.sum())
     assert int(tp.loop_mask.sum()) < tp.e_cap

@@ -17,16 +17,17 @@ reference's capacity ceiling at n_cap = e_cap = 32768.
 Each rep is one lm_solve and the read of its chi^2, timed with CUDA events
 around the host's issue of the whole solve (the card idles while it waits
 for the host's launches, so its busy time alone would hide what the solve
-costs). lm_solve replays the captured graphs of the problem's bucket
-(ops/graphs.py): the first warm-up captures them, and its build's costs
-(the eager warm-up step, the two captures, their instantiation, the
-memory pools) are in the result line's `capture`; a rep that captured
-again would fail the bench. Beside each rep it records, on the host, the perf_counter wall, the
+costs). lm_solve launches the composed solve executable of the problem's
+bucket once (ops/graphs.py: the LM and CG loops end on the card): the
+first warm-up captures its pieces, and its build's costs (the eager
+warm-up of each piece, the four captures, the composition of the
+executables, the memory pools) are in the result line's `capture`; a rep
+that captured again would fail the bench. Beside each rep it records, on the host, the perf_counter wall, the
 issuing thread's CPU time (time.thread_time; it counts a spin-wait at a
 synchronisation as busy, and the time it waited for a CPU or the device
 not), the garbage collections and their time (gc.callbacks; the
-collector stays on, as users run it), the host's time inside the graph
-replay calls (graphs.REPLAY_S: the launches of the 11 graphs) and the
+collector stays on, as users run it), the host's time inside the
+executables' launch calls (graphs.LAUNCH_S: one launch a solve) and the
 allocator's reserved memory; and, just before the rep, two fixed probes
 of the host's speed:
 a pure-Python loop (ms) and the host's time to issue one tiny CUDA
@@ -38,7 +39,8 @@ draw and temperature just before and just after them.
 Checks (any failure exits non-zero before the result line): every solve,
 warm-ups and the traced one included, gives the same chi^2 bit for bit and
 the same LM, accepted and CG counts; each rep launches K1 and K2 as often as
-its LM and CG counts imply (450 and 30 for 10 LM iterations) and captures
+its LM and CG counts imply (K1 once per CG iteration that ran, 318 at
+5k/10k; K2 30 for 10 LM iterations) and captures
 nothing; the chi^2 is
 finite and agrees with its fp64 re-evaluation to 1e-3 relative; at seed 0
 it is at most 1.02 x the reference (0.4038 at 5k/10k, the fp64 exact-step
@@ -50,7 +52,7 @@ After the timed reps one more solve runs under torch.profiler
 (chip_smoke.device_profile): device time, the card's idle share of that
 solve's wall, the device operations, K1 and K2 and the top kernels. The
 K1 and K2 launches that it sees on the card must be those that the
-counters counted (they add each replayed graph's captured launches). It is
+counters counted (they add each piece's captured launches per run). It is
 kept apart from the timed numbers; its wall minus the median is the
 profiler's cost, so the idle share is also given against the median.
 
@@ -245,7 +247,7 @@ def timed_rep(prob, dev, clock: GcClock) -> tuple:
     for w in WRAPPERS.values():
         w.launches = 0
     gc_counts, gc_s = list(clock.counts), clock.seconds
-    replay_s = sum(graphs.REPLAY_S.values())
+    replay_s = sum(graphs.LAUNCH_S.values())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     w0, c0 = time.perf_counter(), time.thread_time()
@@ -259,7 +261,7 @@ def timed_rep(prob, dev, clock: GcClock) -> tuple:
                thread_share=cpu / wall,
                gc=[a - b for a, b in zip(clock.counts, gc_counts)],
                gc_ms=(clock.seconds - gc_s) * 1e3,
-               replay_host_ms=(sum(graphs.REPLAY_S.values()) - replay_s) * 1e3,
+               replay_host_ms=(sum(graphs.LAUNCH_S.values()) - replay_s) * 1e3,
                reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20,
                **probe, launches={k: w.launches for k, w in WRAPPERS.items()})
     return res, chi2, rec
@@ -290,6 +292,7 @@ def main(argv=None) -> int:
     host = dict(cpu_model=cpu_model(), affinity=len(os.sched_getaffinity(0)),
                 torch_threads=torch.get_num_threads())
 
+    chip_smoke.prime_profiler(dev)       # before the solve's composition
     t0 = time.perf_counter()
     prob = build(args.nodes, args.loops, args.seed, np.float32, dev)
     torch.cuda.synchronize()
@@ -344,7 +347,7 @@ def main(argv=None) -> int:
 
     traced = []
     prof = chip_smoke.device_profile(lambda: traced.append(solve(prob)))
-    seen.add(fingerprint(*traced[0]))
+    seen.add(fingerprint(*traced[-1]))
     if len(seen) != 1:
         fail(f"the solves differ (chi^2 hex, LM, accepted, CG): {seen}")
     for v in (res.q, res.t, res.switch):
@@ -360,9 +363,9 @@ def main(argv=None) -> int:
     if not chi2_passes(chi2, bar):
         fail(f"chi^2 {chi2} above the bar {bar} (reference {ref})")
 
-    # the counters add each replayed graph's captured launches; the
+    # the counters add each piece's captured launches per run of it; the
     # profiler sees the launches that ran on the card
-    want = chip_smoke.solve_launches(traced[0][0],
+    want = chip_smoke.solve_launches(traced[-1][0],
                                      PRODUCT["max_cg_iterations"])
     seen_launches = {"band_matvec": prof["k1"]["launches"],
                      "gj_inv": prof["k2"]["launches"]}

@@ -69,6 +69,12 @@ from solve_keyframe_pose_graph_tpu_torch.solver.problem import build_problem_np
 
 PRODUCT = dict(max_iterations=10, preconditioner="band+coarse", bcr_levels=2,
                max_cg_iterations=45)
+# one profiler session before any graph is composed: in executables
+# composed before a process's first session the profiler saw each WHILE
+# node's body run once (chip_smoke.prime_profiler)
+with profile(activities=[ProfilerActivity.CUDA]):
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
 g = synthetic.circle_graph(n_nodes=5000, n_loops=10000, seed=0,
                            outlier_fraction=0.2)
 prob = build_problem_np(

@@ -3,39 +3,64 @@ CUDA graphs (counterpart of the JAX package's ops/lm.py _AOT_CACHE,
 lm_solve_aot_prepare, lm_solve_aot, _shape_key, lm_solve_chunked and
 _chunk_programs, lm.py:646-842).
 
-The reference compiles its LM solve once per bucket shape, ahead of time,
-and can run it one LM iteration per dispatch under the device lock. The port
-captures the same two pieces as CUDA graphs, once per key: the setup's
+The reference compiles its LM solve once per bucket shape, ahead of time:
+the trigger runs it whole (lm_solve_aot, one dispatch whose LM and CG
+loops are while_loops on the device), and the escalation rungs run it one
+LM iteration per dispatch under the device lock (lm_solve_chunked). The
+port captures the solve's pieces as CUDA graphs, once per key: the setup's
 keyword arguments (the solver configuration, with the coarse group
 resolved), each Problem field's shape and dtype (so n_cap, e_cap, p_cap,
 fanout and dtype; the reference's engine key omits p_cap, engine.py:696)
-and the device:
+and the device. The pieces are lm._lm_pieces':
 
-  * the *init* graph: the loop rows' grouping, the assembly at the initial
-    guesses and the loop's first state (the reference's init_fn);
-  * the *step* graph: one LM iteration, lm._lm_setup's body, with its fixed
-    CG iterations and kernels K1 and K2 inside (chunk_fn at chunk_iters=1).
+  * init: the loop rows' grouping, the assembly at the initial guesses and
+    the loop's first state (the reference's init_fn);
+  * pre: an LM iteration up to the CG start (the reduction, the band
+    factorization with kernel K2, the coarse inverse, pcg_start);
+  * cg_iter: one PCG iteration (kernel K1 inside), in place;
+  * post: the rest of the LM iteration, to the next loop state.
 
-A Program holds static buffers, allocated before either capture and so
+ops/graph_loops.py composes them (csrc/graph_loops.cu) into three
+executables: init; step, pre -> WHILE(cg) { cg_iter } -> post, one LM
+iteration whose CG loop ends on the device on pcg_nodes' cond; and solve,
+init -> WHILE(lm) { step }, the whole solve on lm_solve's cond. solve()
+takes the form by dispatch_lock, as the reference does: without one (the
+trigger, which holds the lock itself; the bench; the CLI) one launch of
+solve and one host read; with one (mixed_resolve, fp64_resolve) init and
+then one step launch per LM iteration under the lock, each followed by its
+host read of `done` (lm_solve_chunked at chunk_iters=1), so that a live
+trigger waits at most one LM iteration for the device.
+
+A Program holds static buffers, allocated before any capture and so
 outside the graphs' memory pools: a Problem whose leaves each solve copies
-in, the grouping, and the loop state, which both graphs end by writing in
-place. solve() copies the leaves in, replays init, replays step up to
-max_iterations times, each replay followed by the one host read of `done`
-(lm_solve's contract: at most max_iterations + 1 host syncs per solve), and
-clones the result out of the static buffers: the next solve of the key
-overwrites them, and the engine, mixed_resolve and the escalation ladder
-keep results. A failed capture or replay raises; nothing falls back to the
+in, the grouping, the LM loop state, the CG loop state, the two loops'
+caps and the pieces' run counts. The pieces end by writing the loop states
+in place; pre's other
+outputs (the reduced system, the factorizations) stay alive in its pool
+for cg_iter and post to read. Each solve clones the result out of the
+static buffers: the next solve of the key overwrites them, and the engine,
+mixed_resolve and the escalation ladder keep results. A failed capture,
+composition or launch raises; nothing falls back to a host loop or the
 eager loop, which lm._lm_solve_eager keeps for comparisons.
 
 Capture: under the dispatch lock that the caller passes (or holds), one at a
 time in the process, on a stream of this module's in "thread_local" capture
 mode, so that another thread's CUDA calls neither break it nor are broken by
-it. An eager warm-up of init and one step on that stream comes first
-(PyTorch's rule for graphs: lazy initialisations, the kernels' one-time
-set-up and the library handles happen outside the capture). Each graph
-gets its own memory pool: the engine replays buckets in the order of its
-stream's growth, not in capture order, so pools shared between graphs could
-hand one graph's live memory to another.
+it. An eager warm-up of init, pre, one CG iteration and post on that
+stream comes first (PyTorch's rule for graphs: lazy initialisations, the
+kernels' one-time set-up and the library handles happen outside the
+capture). init gets a memory pool of its own (the engine launches buckets
+in the order of its stream's growth, not in capture order, so pools shared
+between Programs could hand one's live memory to another). pre, cg_iter and
+post share one pool, captured in that order, although they replay in a
+cycle (pre, cg_iter k times, post) and not in capture order: the only
+blocks of the pool that one piece writes and another reads are pre's
+outputs, which stay allocated from pre's capture on, so no later capture
+is handed them; every other block is a temporary that its piece writes
+and reads before it ends; and the pieces run one at a time on one stream.
+A pool per piece gave the same results bit for bit, in more memory than
+the one step graph of the form before the WHILE nodes; the shared pool
+takes what that graph took.
 
 Concurrency: the cache holds one Program per key, and a Program serves one
 solve at a time. A second solve of the key waits for it (Program.busy), and
@@ -46,11 +71,18 @@ would wait for the other. The engine's solves that hold the lock (the
 trigger's) and those that pass it (the escalation rungs') are of different
 keys: precision "mixed", or float64 at other capacities and CG settings.
 
-Launch counts: a captured launch runs at each replay, not at capture, so the
-capture goes into a tally (_kernels.capturing) that each replay adds to the
-kernels' counters. The warm-up's launches are real and are counted as they
-run; WARMUP_LAUNCHES totals them (one step's worth per Program), so that a
-caller can tell them from the replays'.
+Launch counts: a captured launch runs at each replay, not at capture, so
+each piece's capture goes into a tally (_kernels.capturing). How often a
+piece runs depends on the data, and the device measures it: each piece
+ends by adding one to its own run count (Program.runs, init zeroing them
+first), outside the loops' masks, so that a body run once too often is
+counted even where its masks leave the state as it was. The result's one
+host read takes the run counts with `k` and `cg_total`; the counters get
+each piece's tally times its runs, and the solve raises unless init ran
+once, pre and post once per LM iteration and cg_iter once per CG
+iteration. The warm-up's launches are real and are counted as they run;
+WARMUP_LAUNCHES totals them (one run of each piece per Program), so that
+a caller can tell them apart.
 """
 
 from __future__ import annotations
@@ -66,6 +98,7 @@ import torch
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import gn as gn_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import graph_loops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
     FIELDS, LoopRows, Problem, loop_rows_by_node,
@@ -78,8 +111,15 @@ _streams: dict = {}            # device -> the capture stream
 _tls = threading.local()
 LOG: list = []                 # one record per Program built (Program.record)
 WARMUP_LAUNCHES: dict = {}     # C entry point -> warm-up launches
-REPLAYS = {"init": 0, "step": 0}
-REPLAY_S = {"init": 0.0, "step": 0.0}   # host seconds inside replay calls
+PIECES = ("init", "pre", "cg_iter", "post")
+LAUNCHES = dict.fromkeys(graph_loops.NAMES, 0)    # executable -> launches
+LAUNCH_S = dict.fromkeys(graph_loops.NAMES, 0.0)  # host seconds in them
+HOST_READS = {"solve": 0, "step": 0}   # host reads by form of solve
+
+
+class LoopError(_kernels.KernelError):
+    """A solve's pieces ran other than its LM and CG counts say: a device
+    error (_kernels.is_device_error), which no caller carries on past."""
 
 
 def on_card(device: torch.device) -> bool:
@@ -149,28 +189,36 @@ def _clone_state(state):
 
 
 class Program:
-    """The static buffers and the two graphs of one key (see the module
-    note). Built and captured by build(); replayed by solve()."""
+    """The static buffers, the four captured pieces and the composed
+    executables of one key (see the module note). Built and captured by
+    build(); launched by solve()."""
 
     def __init__(self, problem: Problem, setup: dict):
         self.key = key(problem, setup)
         self.setup = setup
-        self.device = problem.device
+        self.device = dev = problem.device
         self.problem = Problem(**{
             f: torch.empty(getattr(problem, f).shape,
                            dtype=getattr(problem, f).dtype,
-                           device=self.device) for f in FIELDS})
+                           device=dev) for f in FIELDS})
         rows = loop_rows_by_node(problem.loop_b, problem.loop_a,
                                  problem.loop_mask, problem.n_cap)
         self.problem.loop_rows_by_node = LoopRows(
             torch.empty_like(rows.order), torch.empty_like(rows.lengths),
             rows.n)
-        self.ops, self._init, self._body = lm_ops._lm_setup(self.problem,
-                                                            **setup)
+        self.pieces = lm_ops._lm_pieces(self.problem, **setup)
+        self.ops = self.pieces.ops
         self.load(problem)
         self.state = _clone_state(self._init_state())
+        self.ctx = self.cg = None              # set by the warm-up's pre
+        int32 = dict(dtype=torch.int32, device=dev)
+        self.caps = {"cg": torch.full((), self.pieces.max_cg_iterations,
+                                      **int32),
+                     "lm": torch.zeros((), **int32)}
+        self.runs = torch.zeros(len(PIECES), **int32)   # runs per piece
         self.graphs: dict = {}
         self.tallies: dict = {}
+        self.loops = None
         self.record: dict = {}
         self.busy = threading.Lock()           # held by the solve using it
 
@@ -192,34 +240,92 @@ class Program:
                 d, s = getattr(hi, f), getattr(p, f)
                 if d is not s:
                     d.copy_(s)
-        return self._init()
+        return self.pieces.init()
 
+    def _ran(self, name: str) -> None:
+        """Add one to the run count of the piece `name` on the device,
+        unmasked; init zeroes the counts first."""
+        if name == "init":
+            self.runs.zero_()
+        self.runs[PIECES.index(name)].add_(1)
+
+    # the pieces, each ending in writes to the static state and its run
+    # count (what each captured graph holds)
     def run_init(self) -> None:
-        """init, written into the static state (what the init graph holds)."""
         _copy_into(self.state, self._init_state())
+        self._ran("init")
 
-    def run_step(self) -> None:
-        """One LM iteration on the static state, in place (the step graph)."""
-        _copy_into(self.state, self._body(self.state))
+    def run_pre(self) -> None:
+        self.ctx, cg = self.pieces.pre(self.state)
+        if self.cg is None:                    # the warm-up: allocate it
+            self.cg = _clone_state(cg)
+        else:
+            _copy_into(self.cg, cg)
+        self._ran("pre")
 
-    def replay(self, name: str) -> None:
+    def run_cg_iter(self) -> None:
+        _copy_into(self.cg, self.pieces.cg_iter(self.ctx, self.cg))
+        self._ran("cg_iter")
+
+    def run_post(self) -> None:
+        _copy_into(self.state, self.pieces.post(self.state, self.ctx,
+                                                self.cg))
+        self._ran("post")
+
+    def conds(self) -> tuple:
+        """(cg, lm): the CG and LM loops' conditions on the static state."""
+        return (graph_loops.Cond(self.cg.done, self.cg.k, self.caps["cg"]),
+                graph_loops.Cond(self.state.done, self.state.k,
+                                 self.caps["lm"]))
+
+    def launch(self, name: str) -> None:
         t0 = time.perf_counter()
-        self.graphs[name].replay()
+        self.loops.launch(name)
         dt = time.perf_counter() - t0
-        _kernels.add_launches(self.tallies[name])
         with _cache_lock:
-            REPLAYS[name] += 1
-            REPLAY_S[name] += dt
+            LAUNCHES[name] += 1
+            LAUNCH_S[name] += dt
 
-    def result(self) -> lm_ops.LMResult:
-        """The result of the last replays, cloned out of the static state;
-        raises torch.linalg.LinAlgError if a coarse factorization failed.
-        The host read of the fault comes after the clones, so that the
-        static state may be overwritten once this returns or raises."""
+    def read(self, form: str, *values) -> list:
+        """One host read of the 0-d integer or bool tensors `values`."""
+        out = torch.stack([v.to(torch.int64) for v in values]).tolist()
+        with _cache_lock:
+            HOST_READS[form] += 1
+        return out
+
+    def launches(self, runs: dict) -> dict:
+        """The kernels' launches {(wrapper, entry): n} of `runs` {piece:
+        runs}: each piece's tally times its runs."""
+        tally: dict = {}
+        for name, n in runs.items():
+            for k, v in self.tallies[name].items():
+                tally[k] = tally.get(k, 0) + n * v
+        return tally
+
+    def count(self, runs: dict) -> None:
+        """Add launches(runs) to the counters."""
+        _kernels.add_launches(self.launches(runs))
+
+    def result(self, form: str) -> lm_ops.LMResult:
+        """The result of the last launches, cloned out of the static state,
+        the launches that the pieces' run counts imply counted. Raises
+        LoopError unless init ran once, pre and post once per LM iteration
+        and cg_iter once per CG iteration, and torch.linalg.LinAlgError if
+        a coarse factorization failed. The host read comes after the
+        clones, so that the static state may be overwritten once this
+        returns or raises."""
         st = self.state
         res = lm_ops.result(st, *self.ops.result(st.q, st.t, st.s))
         out = lm_ops.LMResult(*(v.clone() for v in res))
-        lm_ops.check_fault(st.fault.clone())
+        k, cg_total, fault, *runs = self.read(form, st.k, st.cg_total,
+                                              st.fault, *self.runs)
+        runs = dict(zip(PIECES, runs))
+        self.count(runs)
+        want = {"init": 1, "pre": k, "cg_iter": cg_total, "post": k}
+        if runs != want:
+            raise LoopError(f"the pieces ran {runs} times in a solve of {k} "
+                            f"LM and {cg_total} CG iterations ({want})")
+        lm_ops.check_fault(fault)
         return out
 
 
@@ -240,13 +346,14 @@ def _capture_stream(device: torch.device):
     caller.wait_stream(stream)
 
 
-def _capture(fn, device: torch.device):
-    """Capture fn() on the current stream into a CUDA graph with a memory
-    pool of its own, in "thread_local" capture mode, and instantiate it.
-    Returns (graph, capture_s, instantiate_s, pool_bytes)."""
+def _capture(fn, device: torch.device, pool=None):
+    """Capture fn() on the current stream into a CUDA graph, in the memory
+    pool `pool` (None: a pool of its own), in "thread_local" capture mode,
+    kept (not instantiated: graph_loops composes it). Returns (graph,
+    capture_s, the bytes of its pool after the capture)."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     t0 = time.perf_counter()
-    graph.capture_begin(capture_error_mode="thread_local")
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
     try:
         fn()
     except BaseException:
@@ -255,35 +362,41 @@ def _capture(fn, device: torch.device):
         raise
     graph.capture_end()
     t1 = time.perf_counter()
-    graph.instantiate()
-    t2 = time.perf_counter()
-    pool = tuple(graph.pool())
+    handle = tuple(graph.pool())
     nbytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                 if tuple(seg.get("segment_pool_id", ())) == pool)
-    return graph, t1 - t0, t2 - t1, nbytes
+                 if tuple(seg.get("segment_pool_id", ())) == handle)
+    return graph, t1 - t0, nbytes
 
 
 def build(problem: Problem, setup: dict) -> Program:
-    """A Program for (problem, resolved setup), warmed up and captured.
-    The caller holds the dispatch lock and _capture_lock."""
+    """A Program for (problem, resolved setup), warmed up, captured and
+    composed. The caller holds the dispatch lock and _capture_lock."""
     t0 = time.perf_counter()
     prog = Program(problem, setup)
+    runs = {"init": prog.run_init, "pre": prog.run_pre,
+            "cg_iter": prog.run_cg_iter, "post": prog.run_post}
     with _capture_stream(prog.device):
-        prog.run_init()                            # the eager warm-up
-        prog.run_step()
+        for name in PIECES:                        # the eager warm-up
+            runs[name]()
         if prog.device.type == "cuda":
             torch.cuda.current_stream(prog.device).synchronize()
         warm_s = time.perf_counter() - t0
-        rec = dict(warmup_s=warm_s, capture_s=0.0, instantiate_s=0.0,
-                   pool_bytes=0)
-        for name, fn in (("init", prog.run_init), ("step", prog.run_step)):
+        rec = dict(warmup_s=warm_s, capture_s=0.0)
+        pool = None                        # init's own, then the step's
+        for name in PIECES:
             with _kernels.capturing() as tally:
-                graph, cap_s, inst_s, nbytes = _capture(fn, prog.device)
+                graph, cap_s, nbytes = _capture(runs[name], prog.device,
+                                                pool)
             prog.graphs[name], prog.tallies[name] = graph, tally
-            rec[f"{name}_pool_bytes"] = nbytes
+            pool = graph.pool() if name == "pre" else pool
+            rec["init_pool_bytes" if name == "init" else
+                "step_pool_bytes"] = nbytes
             rec["capture_s"] += cap_s
-            rec["instantiate_s"] += inst_s
-            rec["pool_bytes"] += nbytes
+        rec["pool_bytes"] = rec["init_pool_bytes"] + rec["step_pool_bytes"]
+        t1 = time.perf_counter()
+        prog.loops = graph_loops.compose(prog.graphs, *prog.conds(),
+                                         prog.device)
+        rec["instantiate_s"] = time.perf_counter() - t1
     p = prog.problem
     prog.record = dict(
         n_cap=p.n_cap, e_cap=p.e_cap, p_cap=p.p_cap, fanout=p.fanout,
@@ -293,9 +406,11 @@ def build(problem: Problem, setup: dict) -> Program:
         coarse_group=setup["coarse_group"],
         build_s=time.perf_counter() - t0, **rec)
     with _cache_lock:
-        # the warm-up ran one step eagerly: its launches, counted as they ran
-        for (_, entry), n in prog.tallies["step"].items():
-            WARMUP_LAUNCHES[entry] = WARMUP_LAUNCHES.get(entry, 0) + n
+        # the warm-up ran each piece once eagerly: its launches, counted as
+        # they ran
+        for tally in prog.tallies.values():
+            for (_, entry), n in tally.items():
+                WARMUP_LAUNCHES[entry] = WARMUP_LAUNCHES.get(entry, 0) + n
         LOG.append(prog.record)
     _tls.captures = captures_on_this_thread() + 1
     return prog
@@ -344,10 +459,13 @@ def prepare(problem: Problem, **lm_kw) -> dict:
 def solve(problem: Problem, setup: dict, *, max_iterations: int,
           dispatch_lock=None) -> lm_ops.LMResult:
     """lm_solve of a CUDA Problem through the Program of its key (built at
-    first use): the leaves copied in and init replayed under the lock, then
-    each step replay and its host read of `done` under the lock, and the
-    result cloned out. A Program whose replay failed is dropped from the
-    cache; a failed coarse factorization (LinAlgError) leaves it there."""
+    first use). Without dispatch_lock: the leaves copied in, one launch of
+    the solve executable and the result cloned out with one host read.
+    With it: under the lock the leaves copied in, init launched and `k`
+    and `done` read; then each step launch and its read under the lock
+    until the LM loop's cond fails; then the result. A Program whose
+    launch failed is dropped from the cache; a failed coarse factorization
+    (LinAlgError) leaves it there."""
     setup = resolved(problem, setup)
     lock = dispatch_lock if dispatch_lock is not None else \
         contextlib.nullcontext()
@@ -355,17 +473,21 @@ def solve(problem: Problem, setup: dict, *, max_iterations: int,
         prog, _ = _program(problem, setup)
     with prog.busy:
         try:
+            if dispatch_lock is None:
+                prog.load(problem)
+                prog.caps["lm"].fill_(max_iterations)
+                prog.launch("solve")
+                return prog.result("solve")
+            st = prog.state
             with lock:
                 prog.load(problem)
-                prog.replay("init")
-                done = bool(prog.state.done)
-            for _ in range(max_iterations):
-                if done:
-                    break
+                prog.launch("init")
+                k, done = prog.read("step", st.k, st.done)
+            while not done and k < max_iterations:
                 with lock:
-                    prog.replay("step")
-                    done = bool(prog.state.done)   # one host sync an iteration
-            return prog.result()
+                    prog.launch("step")
+                    k, done = prog.read("step", st.k, st.done)
+            return prog.result("step")
         except torch.linalg.LinAlgError:
             raise
         except BaseException:

@@ -28,16 +28,21 @@ problem "mixed" is "native".
 
 On a CUDA problem every reduced matvec's band part runs kernel K1 and every
 BCR inverse kernel K2: the wrappers dispatch on the tensors' device, which
-replaces the reference's backend switch (lm.py:172-177). The LM loop reads
-its `done` flag on the host once per iteration, so a solve synchronises at
-most max_iterations + 1 times; CG never synchronises, and nothing in the
-setup or the loop body reads a value on the host or copies one from it.
-That makes them capturable: lm_solve solves a CUDA Problem through
-ops/graphs.py, which captures the setup and one LM iteration as two CUDA
-graphs per capacity bucket and solver configuration (the counterpart of
-the reference's compiled, cached solve program, lm.py:493-842) and replays
-them; a CPU Problem and a problem on a mesh run the same setup and body
-eagerly. The loop body reaches
+replaces the reference's backend switch (lm.py:172-177). The loop is
+written as _lm_pieces: init, and each LM iteration as pre (up to the CG
+start), cg_iter (one CG iteration, ops/pcg.py) and post. None reads a
+value on the host or copies one from it, so each can be captured:
+lm_solve solves a CUDA Problem through ops/graphs.py, which captures the
+pieces per capacity bucket and solver configuration and runs the LM and
+CG loops on the device in conditional WHILE nodes on the reference's
+conds (the counterpart of the reference's compiled, cached solve program,
+lm.py:493-842): one launch and one host read per solve, or, with a
+dispatch_lock, one launch and one host read per LM iteration under the
+lock (lm_solve_chunked). A CPU Problem and a problem on a mesh run the
+eager form (_lm_setup's body: pre, cg_iter at the fixed cap under
+pcg_nodes' done mask, post; the same arithmetic), reading `done` on the
+host once per LM iteration, so at most max_iterations + 1 host syncs.
+The loop body reaches
 the Problem only through an ops object, which also holds the precision's
 two copies: DeviceOps for a Problem, and the one a problem of another
 layout brings (parallel.ShardedProblem.lm_ops, whose vectors are per-shard
@@ -64,12 +69,12 @@ that SolverConfig.fp64_backend selects, as in the reference:
 The device rungs take the caller's dispatch_lock around each LM iteration,
 so a streaming engine's trigger solves wait at most one iteration.
 
-The reference's AOT executable cache, lm_solve_chunked (one LM iteration
-per dispatch under the lock) and outer_unroll (the LM loop as masked
-straight-line code) are ops/graphs.py's graphs: the step graph is one LM
-iteration, replayed under the lock. Not ported: freeze_preconditioner (a
-measured rejection) and the TPU-only loop_impl / band_impl / tile_k /
-matvec_impl variants.
+The reference's AOT executable cache, lm_solve_aot (the whole solve in one
+dispatch) and lm_solve_chunked (one LM iteration per dispatch under the
+lock) are ops/graphs.py's solve and step executables; outer_unroll (the LM
+loop as masked straight-line code, a TPU compile workaround) has no
+counterpart. Not ported: freeze_preconditioner (a measured rejection) and
+the TPU-only loop_impl / band_impl / tile_k / matvec_impl variants.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ import logging
 import math
 import threading
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -294,7 +299,38 @@ def _make_ops(problem, **kw):
     return own(**kw) if own is not None else DeviceOps(problem, **kw)
 
 
-def _lm_setup(
+class _StepCtx(NamedTuple):
+    """What an LM iteration's pre hands to its CG iterations and its post:
+    the reduced system, the scaling, the CG forcing, the fault flag and
+    the reduced matvec and preconditioner (closures over the system and
+    the factorizations)."""
+    red: gn_ops.ReducedSystemT
+    scale_n: torch.Tensor
+    scale_s: torch.Tensor
+    lm_n: torch.Tensor
+    lm_s: torch.Tensor
+    g_n_hat: torch.Tensor
+    tol_k: torch.Tensor
+    fault: torch.Tensor
+    mv: Callable
+    precond: Callable
+
+
+class LMPieces(NamedTuple):
+    """The LM loop in the pieces that ops/graphs.py captures: init() the
+    loop's first state; pre(state) -> (ctx, cg) an iteration up to the CG
+    start; cg_iter(ctx, cg) -> cg one CG iteration; post(state, ctx, cg)
+    -> state the rest of the iteration. One LM iteration is pre, CG
+    iterations until cg.done or max_cg_iterations, then post."""
+    ops: object
+    init: Callable
+    pre: Callable
+    cg_iter: Callable
+    post: Callable
+    max_cg_iterations: int
+
+
+def _lm_pieces(
     problem,
     *,
     max_cg_iterations: int,
@@ -312,12 +348,10 @@ def _lm_setup(
     cg_warm_iters: int,
     cg_warm_mult: float,
     precision: str,
-):
-    """(ops, init, body) of the LM loop: init() assembles at the initial
-    guesses and returns the loop's first state, body(state) is one LM
-    iteration. Neither reads a value on the host nor copies one from it,
-    and every tensor they make from Python numbers is a fill: so both can
-    be captured (ops/graphs.py)."""
+) -> LMPieces:
+    """The LM loop's pieces (LMPieces). None reads a value on the host or
+    copies one from it, and every tensor they make from Python numbers is
+    a fill: so each can be captured (ops/graphs.py)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r}; use one of "
                          f"{PRECISIONS}")
@@ -354,7 +388,7 @@ def _lm_setup(
             distress=zero_i, cg_total=zero_i, cg_trunc=scalar(0.0),
             done=no, tighten=no, cost0=blocks0.cost, fault=no)
 
-    def body(state: _LoopState) -> _LoopState:
+    def pre(state: _LoopState) -> tuple[_StepCtx, pcg_ops.PCGState]:
         blocks = ops.lo(state.blocks)       # the linear algebra's dtype
         red, scale_n, scale_s, lm_n, lm_s = ops.reduce(blocks, state.radius)
         g_n_hat = blocks.g_n * scale_n                         # (6, Nc)
@@ -365,10 +399,18 @@ def _lm_setup(
         tol_k = torch.where(state.tighten, tol_tight, tol_k)
         precond, info = ops.precond(red, mv)
         fault = state.fault if info is None else state.fault | (info != 0)
-        sol = pcg_ops.pcg_nodes(
-            mv, precond, red.rhs_n,
-            max_iterations=max_cg_iterations, r_tolerance=tol_k,
-            q_tolerance=cg_q_tolerance)
+        cg = pcg_ops.pcg_start(precond, red.rhs_n, r_tolerance=tol_k)
+        return _StepCtx(red, scale_n, scale_s, lm_n, lm_s, g_n_hat, tol_k,
+                        fault, mv, precond), cg
+
+    def cg_iter(ctx: _StepCtx, cg: pcg_ops.PCGState) -> pcg_ops.PCGState:
+        return pcg_ops.pcg_iteration(ctx.mv, ctx.precond, ctx.red.rhs_n, cg,
+                                     q_tolerance=cg_q_tolerance)
+
+    def post(state: _LoopState, ctx: _StepCtx,
+             cg: pcg_ops.PCGState) -> _LoopState:
+        red, scale_n, scale_s = ctx.red, ctx.scale_n, ctx.scale_s
+        sol = pcg_ops.pcg_finish(cg)
         dxh_n = sol.x                                          # (6, Nc)
         dxh_s = ops.recover(red, dxh_n)
         # model cost change -g'.dx' - 0.5 dx'.H'.dx' (H' without the LM
@@ -376,8 +418,9 @@ def _lm_setup(
         # CG recurrence, and the switch terms telescope
         bs = red.rhs_s
         quad_S = _dot(dxh_n, red.rhs_n - sol.r) + _dot(red.ds_inv * bs, bs)
-        quad_lm = _dot(lm_n * dxh_n, dxh_n) + _dot(lm_s * dxh_s, dxh_s)
-        gTdx = _dot(g_n_hat, dxh_n) - _dot(bs, dxh_s)
+        quad_lm = _dot(ctx.lm_n * dxh_n, dxh_n) + _dot(ctx.lm_s * dxh_s,
+                                                        dxh_s)
+        gTdx = _dot(ctx.g_n_hat, dxh_n) - _dot(bs, dxh_s)
         model_cost_change = -gTdx - 0.5 * (quad_S - quad_lm)
 
         # the step is promoted to the parameter state's dtype
@@ -428,14 +471,30 @@ def _lm_setup(
             distress=state.distress + overshoot.to(torch.int32),
             cg_total=state.cg_total + sol.iterations,
             cg_trunc=torch.maximum(state.cg_trunc,
-                                   sol.rel_residual / tol_k),
-            done=done | fault,
+                                   sol.rel_residual / ctx.tol_k),
+            done=done | ctx.fault,
             tighten=~accept,
             cost0=state.cost0,
-            fault=fault,
+            fault=ctx.fault,
         )
 
-    return ops, init, body
+    return LMPieces(ops, init, pre, cg_iter, post, max_cg_iterations)
+
+
+def _lm_setup(problem, **setup):
+    """(ops, init, body) of the LM loop's eager form: init() assembles at
+    the initial guesses and returns the loop's first state, body(state) is
+    one LM iteration, its CG run to the fixed cap under pcg_nodes' done
+    mask (the reference's body, lm.py:324-475)."""
+    pieces = _lm_pieces(problem, **setup)
+
+    def body(state: _LoopState) -> _LoopState:
+        ctx, cg = pieces.pre(state)
+        for _ in range(pieces.max_cg_iterations):
+            cg = pieces.cg_iter(ctx, cg)
+        return pieces.post(state, ctx, cg)
+
+    return pieces.ops, pieces.init, body
 
 
 def lm_solve(
@@ -462,15 +521,18 @@ def lm_solve(
                                     # throughout; "mixed": fp64 assembly,
                                     # cost and state around fp32 CG
     dispatch_lock=None,             # held around the setup and each LM
-                                    # iteration (to its host sync)
+                                    # iteration (to its host sync); on
+                                    # the card also the form: one launch
+                                    # per LM iteration rather than one
 ) -> LMResult:
     """One full LM solve of `problem` on its own device: in its own dtype
     (precision="native"), or with the assembly, cost and parameter state
     in fp64 around a linear algebra in its dtype (precision="mixed", see
     the module note; the result's q, t, switch and costs are then fp64). A
-    Problem on a CUDA device is solved through the captured graphs of its
-    capacity bucket and configuration (ops/graphs.py: captured at first
-    use, replayed after), a CPU Problem by the same loop run eagerly. A
+    Problem on a CUDA device is solved through the composed executables of
+    its capacity bucket and configuration (ops/graphs.py: captured at first
+    use, launched after; the LM and CG loops end on the device), a CPU
+    Problem by the same pieces run eagerly, CG at its fixed cap. A
     parallel.ShardedProblem is solved eagerly over its mesh (parallel/
     sharded_lm.py), with the same mathematics; its result's q, t and switch
     are gathered on the mesh's first device."""
@@ -545,7 +607,7 @@ _eager = threading.local()
 def _eager_solves():
     """Within the context, this thread's lm_solve calls run the loop
     eagerly on any device, never through ops/graphs.py: the reference
-    that the graphs' replays are held to (chip_smoke.py, the tests)."""
+    that the graphed solves are held to (chip_smoke.py, the tests)."""
     before = getattr(_eager, "on", False)
     _eager.on = True
     try:

@@ -39,11 +39,13 @@ device and P CPU shards for the CPU; too few cards raise at construction.
 As in the reference, the mesh path takes the full problem build, shards it
 (parallel.shard_problem) and writes back from the gathered result.
 
-On a CUDA device (no mesh) each solve replays the captured graphs of its
-capacity bucket (ops/graphs.py), as the reference's trigger runs the
-compiled program of its bucket. warmup() captures them ahead of the stream
-for the reference's bucket ladder (_warmup_pairs), and, on a thread of its
-own, loads the host fp64 rung (the native LDL^T library, built on demand,
+On a CUDA device (no mesh) each trigger's solve is one launch of the
+composed graphs of its capacity bucket, its LM and CG loops ending on the
+card (ops/graphs.py), as the reference's trigger runs the compiled program
+of its bucket; the escalation rungs, which get the device lock passed,
+launch one LM iteration at a time. warmup() captures them ahead of the
+stream for the reference's bucket ladder (_warmup_pairs), and, on a thread
+of its own, loads the host fp64 rung (the native LDL^T library, built on demand,
 and scipy) when the config can escalate to it. A trigger whose bucket is
 not warmed captures its own; each trigger's solve_stats row counts the
 captures its solve took (trigger_captures). The escalation ladder's device

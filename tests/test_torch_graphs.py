@@ -6,10 +6,13 @@ needs and everything around it:
     host or copies one from it (each would break or corrupt a capture);
   * the loop rows' grouping has one shape per capacity bucket, and sums
     bit for bit as the grouping of the live rows alone;
-  * a Program's static buffers, init and step, run eagerly through a test
-    double of the capture (EagerGraph below, the only one: the package has
-    none), give eager lm_solve's results bit for bit, keep no state from
-    one solve to the next, and match the JAX package's lm_solve_chunked;
+  * a Program's static buffers and captured pieces (init, pre, cg_iter,
+    post), run eagerly through test doubles of the capture (EagerGraph
+    below) and of graph_loops' executables (HostLoops below: host while
+    loops on the WHILE nodes' conditions), the only ones (the package has
+    none), give eager lm_solve's results bit for bit, keep no state from one
+    solve to the next, and match the JAX package's lm_solve_chunked
+    (tests/test_torch_device_loops.py holds the loops themselves);
   * the engine's bucket ladder is the reference's, and a warmed stream
     takes no capture on its trigger path.
 The captures themselves run on the card: chip_smoke.py phase 18.
@@ -33,7 +36,9 @@ from solve_keyframe_pose_graph_tpu.solver.problem import (
 from solve_keyframe_pose_graph_tpu_torch import config as tconfig
 from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
 from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
-from solve_keyframe_pose_graph_tpu_torch.ops import _kernels, graphs
+from solve_keyframe_pose_graph_tpu_torch.ops import (
+    _kernels, graph_loops, graphs,
+)
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as tcoarse
 from solve_keyframe_pose_graph_tpu_torch.ops import gn as tgn
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as tlm
@@ -195,14 +200,60 @@ class EagerGraph:
     def replay(self):
         self.fn()
 
+    def pool(self):
+        return None
+
+
+def _eager_capture(fn, device, pool=None):
+    """graphs._capture's test double: (graph, capture_s, pool_bytes)."""
+    return EagerGraph(fn), 0.0, 0
+
+
+def holds(cond: graph_loops.Cond) -> bool:
+    """The WHILE nodes' condition (csrc/graph_loops.cu set_cond), !done &&
+    k < cap, read on the host."""
+    return not bool(cond.done) and int(cond.k) < int(cond.cap)
+
+
+class HostLoops:
+    """Test double of graph_loops' executables (graph_loops.compose): the
+    same loops over the pieces' replay(), as host while loops on the same
+    conditions."""
+
+    def __init__(self, pieces: dict, cg: graph_loops.Cond,
+                 lm: graph_loops.Cond, device=None):
+        self.pieces, self.cg, self.lm = pieces, cg, lm
+
+    def _step(self) -> None:
+        self.pieces["pre"].replay()
+        while holds(self.cg):
+            self.pieces["cg_iter"].replay()
+        self.pieces["post"].replay()
+
+    def launch(self, name: str) -> None:
+        if name in ("init", "solve"):
+            self.pieces["init"].replay()
+        if name == "step":
+            self._step()
+        elif name == "solve":
+            while holds(self.lm):
+                self._step()
+
+
+def graph_on_cpu(monkeypatch, capture=_eager_capture) -> None:
+    """lm_solve takes the Programs on the CPU: `capture` as graphs._capture
+    and HostLoops as graph_loops.compose."""
+    monkeypatch.setattr(graphs, "on_card", lambda device: True)
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(graph_loops, "compose", HostLoops)
+
 
 @pytest.fixture
 def graphed_cpu(monkeypatch):
     """lm_solve and the engine take the graphs on the CPU, with EagerGraph
-    as the capture; an empty cache before and after."""
-    monkeypatch.setattr(graphs, "on_card", lambda device: True)
-    monkeypatch.setattr(graphs, "_capture",
-                        lambda fn, device: (EagerGraph(fn), 0.0, 0.0, 0))
+    as the capture and HostLoops as the executables; an empty cache before
+    and after."""
+    graph_on_cpu(monkeypatch)
     graphs.clear()
     yield
     graphs.clear()
@@ -226,7 +277,7 @@ def test_one_program_serves_two_problems_of_a_bucket(graphed_cpu):
 
 
 def test_program_matches_reference_chunked_solve(graphed_cpu):
-    """At fp64 the Program's init and step replays follow the JAX package's
+    """At fp64 the Program's launches follow the JAX package's
     lm_solve_chunked(chunk_iters=1): equal counts, chi^2 to 1e-6."""
     jp = _graph(n=200, loops=40, n_cap=256, e_cap=64, dtype=np.float64,
                 builder=jax_build)
@@ -249,13 +300,11 @@ def test_program_matches_reference_chunked_solve(graphed_cpu):
 def test_failed_capture_raises_and_caches_nothing(monkeypatch):
     """A capture that fails raises out of lm_solve: nothing carries on
     eagerly, and no Program is kept."""
-    monkeypatch.setattr(graphs, "on_card", lambda device: True)
-
-    def broken(fn, device):
+    def broken(fn, device, pool=None):
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
 
-    monkeypatch.setattr(graphs, "_capture", broken)
+    graph_on_cpu(monkeypatch, broken)
     graphs.clear()
     with pytest.raises(RuntimeError, match="capturing"):
         tlm.lm_solve(_graph(n=100, loops=10, n_cap=128, e_cap=32), **PRODUCT)
@@ -274,9 +323,7 @@ def test_failed_coarse_factorization_raises(monkeypatch, graphed):
 
     monkeypatch.setattr(torch.linalg, "cholesky_ex", failing)
     if graphed:
-        monkeypatch.setattr(graphs, "on_card", lambda device: True)
-        monkeypatch.setattr(graphs, "_capture",
-                            lambda fn, device: (EagerGraph(fn), 0.0, 0.0, 0))
+        graph_on_cpu(monkeypatch)
     graphs.clear()
     with pytest.raises(torch.linalg.LinAlgError, match="Cholesky"):
         tlm.lm_solve(_graph(n=100, loops=10, n_cap=128, e_cap=32),

@@ -78,26 +78,40 @@ Phases, one printed line each (or a few):
      switches, bit for bit, delta builds only when on, and the median
      problem-build time per trigger both ways;
  14. mesh: the solve over a mesh of shards that all sit on this card
-     (parallel/): (a) the phase-5 problem at the product defaults on 4
-     shards, fp32, within 2% of the fp64 reference and 1e-3 of the
-     single-device chi^2 of this run, K1 launched 4 times and K2 once per
-     single-device launch, median ms per solve of both; (b) the
+     (parallel/), through the composed executables as on one device
+     (ops/graphs.py serves such a mesh; each line says its route,
+     graphs or eager): (a) the phase-5 problem at the product defaults on
+     4 shards, fp32: the eager mesh solve (lm._lm_solve_eager), then the
+     graphed mesh in its solve form (one launch, one host read) and its
+     step form (an init and a step per LM iteration under a dispatch
+     lock), each bit for bit the eager one; K1 launched 4 times per CG
+     iteration that ran (eager: of the cap) and K2 3 times per LM
+     iteration; within 2% of the fp64 reference and 1e-3 of the
+     single-device chi^2 of this run; the graphed mesh, the eager mesh
+     and the single device timed in turns (3 reps), then one more graphed
+     solve under the profiler (device time, idle share); (b) the
      __graft_entry__.dryrun_multichip certificate on the card: the same
      graph in fp64 on 8 shards (band+coarse, coarse_group 64, bcr_levels
-     2, 2 LM / 8 CG) against the unsharded fp64 solve, to 1e-9 in chi^2, q
-     and switches and 1e-8 in t; (c) pcg_sharded on phase 5's first
-     reduced system on 8 shards, its solution's relative residual in the
+     2, 2 LM / 8 CG), graphed and bit for bit its eager form, against
+     the unsharded fp64 solve, to 1e-9 in chi^2, q and switches and 1e-8
+     in t, with equal counts; (c) pcg_sharded on phase 5's first reduced
+     system on 8 shards, its solution's relative residual in the
      single-device reduced matvec below 1e-4, and the sharded halo matvec
      (K1) against the single-device reduced_matvec_t (K1); (d) phase 9's
      stream through SolverEngine on 4 shards of the card with async
-     dispatch (re-sharding every trigger, the full build, the solve on the
-     worker thread, the write-back from the gathered result) against the
-     unmeshed engine of this run, in fp64: the same triggers and LM
-     counts, and poses within 1e-8 of their scale; (e) the phase-5 problem
-     (fp32) on 4 shards through escalate_resolve's device ladder (the mixed
-     rung on the shards, then the fp64 rung sharded again over the mesh)
-     against the unmeshed ladder, within 1e-3 in chi^2. With two or more
-     cards (a) also runs across distinct cards;
+     dispatch, after warmup(5000, 2500, proportional=False) of the
+     mesh's buckets (re-sharding every trigger, the full build, the
+     graphed solve on the worker thread, the write-back from the gathered
+     result) against the unmeshed engine of this run, warmed the same
+     way, in fp64: 0 captures on the mesh's trigger path, the same
+     triggers and LM counts, poses within 1e-8 of their scale, and the
+     trigger walls of both; (e) the phase-5 problem (fp32) on
+     4 shards through escalate_resolve's device ladder with a dispatch
+     lock (the mixed rung on the shards, then the fp64 rung sharded again
+     over the mesh, each in the step form) against the unmeshed ladder,
+     within 1e-3 in chi^2. With two or more cards (a) also runs across
+     distinct cards, eagerly (a conditional node's body runs on one
+     device);
  15. capacity: the reference's ceiling of 30,000 nodes and 30,000 loop
      edges (circle graph, n_cap = e_cap = 32768, fp32) through lm_solve at
      the product defaults (coarse group 128, K1 at N = 32768, K2 on 4096,
@@ -138,6 +152,10 @@ Phases, one printed line each (or a few):
      trigger path, the same poses, switches and counts, trigger median
      and p90 of both; (d) phase 7's mixed rung as (a), K1 and K2 in fp32;
      (e) band*coarse and (f) 4-DOF as (a), 3 reps.
+Phase 14 runs after phase 16: in one process each torch.profiler session
+over composed executables after the first misread more of their kernels
+(PERF.md), and phase 15's profiled solve is the one that PERF.md's
+capacity figures come from.
 `--only k1,k2` (any of the phase names in PHASES) runs a subset and prints
 no result line. Each path of phases 5, 7-16 and 18 is run with the kernels'
 launch counts set to 0 just before it and read just after (a graphed
@@ -159,10 +177,9 @@ exact-step self-reference, phase 12's CPU solve and phase 14's unsharded
 references run outside them); where
 the code fixes a path's launches by its LM and CG counts, they must match
 (expected_launches, solve_launches, ladder_launches: K1 once per CG
-iteration that ran on a graphed solve, and per CG iteration of the cap on
-an eager one (the mesh; a device-ladder escalation on it is its mixed
-rung's LM iterations at the caller's CG cap plus, when it climbed, the
-fp64 rung's at 100)). Then a JSON line with each kernel's
+iteration that ran on a graphed solve, one card's or a one-card mesh's
+(once per shard), and per CG iteration of the cap on an eager one (the
+eager references, a mesh over distinct cards)). Then a JSON line with each kernel's
 numbers (launches summed over those paths, and by path), the card line
 again, and last {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero before that last line; there is no CPU fallback.
@@ -824,22 +841,16 @@ def entry_points_taken():
                 taken[e] = n
 
 
-def ladder_launches(res, rung: str, stats: dict, cg_cap: int = 45,
-                    shards: int = 1, graphed: bool = True) -> dict:
-    """K1 and K2 launches of a device-ladder escalation: the mixed rung
-    (its LM and CG counts from the rung statistics), then, if it climbed,
-    the fp64 rung (the result's counts); 3 K2 per LM iteration. Graphed
-    (one card), one K1 per CG iteration that ran; eager (a mesh), one per
-    CG iteration of the cap, the caller's for the mixed rung and max(100,
-    cg_cap) for the fp64 rung, and once per shard."""
+def ladder_launches(res, rung: str, stats: dict) -> dict:
+    """K1 and K2 launches of a graphed device-ladder escalation: the mixed
+    rung (its LM and CG counts from the rung statistics), then, if it
+    climbed, the fp64 rung (the result's counts); 3 K2 per LM iteration
+    and one K1 per CG iteration that ran."""
     mixed = stats["mixed_lm_iterations"]
     fp64 = int(res.iterations) if rung == "fp64" else 0
-    if graphed:
-        k1 = stats["mixed_cg_iterations"] + (
-            int(res.total_cg_iterations) if fp64 else 0)
-    else:
-        k1 = cg_cap * mixed + max(100, cg_cap) * fp64
-    return {"band_matvec": shards * k1, "gj_inv": 3 * (mixed + fp64)}
+    k1 = stats["mixed_cg_iterations"] + (
+        int(res.total_cg_iterations) if fp64 else 0)
+    return {"band_matvec": k1, "gj_inv": 3 * (mixed + fp64)}
 
 
 def by_precision(taken: dict) -> dict:
@@ -936,31 +947,24 @@ def phase_escalation(dev, card: str, fp32_chi2=None) -> None:
             torch_threads=threads, card=repr(card))
 
 
-def expected_launches(rows: list, cg_cap: int = 45,
-                      cg_cap_fp64: int = 100, per_factor: int = 3,
-                      graphed: bool = True) -> dict:
-    """K1 and K2 launches of the solves that wrote `rows`: `per_factor` K2
-    (bcr_levels + 1) per LM iteration and one K1 per CG iteration, for the
-    fp32 trigger solves and the background escalations' device rungs (a
-    "mixed" row's mixed rung, a "fp64" row's mixed rung from its
-    rung_stats and then its fp64 rung); the host rung launches nothing.
-    Graphed, a CG iteration is one that ran; eager (a mesh), every one of
-    the cap: the caller's, and cg_cap_fp64 on the fp64 rung."""
+def expected_launches(rows: list, per_factor: int = 3) -> dict:
+    """K1 and K2 launches of the graphed solves that wrote `rows`:
+    `per_factor` K2 (bcr_levels + 1) per LM iteration and one K1 per CG
+    iteration that ran, for the fp32 trigger solves and the background
+    escalations' device rungs (a "mixed" row's mixed rung, a "fp64" row's
+    mixed rung from its rung_stats and then its fp64 rung); the host rung
+    launches nothing."""
     k1 = k2 = 0
     for r in rows:
         if "trigger_wall_ms" in r:
-            k1 += (r["cg_iterations"] if graphed
-                   else cg_cap * r["lm_iterations"])
+            k1 += r["cg_iterations"]
             k2 += per_factor * r["lm_iterations"]
         elif r.get("escalated_rung") in ("mixed", "fp64"):
             st = r["rung_stats"]
             mixed = st["mixed_lm_iterations"]
             fp64 = r["lm_iterations"] if r["escalated_rung"] == "fp64" else 0
-            if graphed:
-                k1 += st["mixed_cg_iterations"] + (r["cg_iterations"]
-                                                   if fp64 else 0)
-            else:
-                k1 += cg_cap * mixed + cg_cap_fp64 * fp64
+            k1 += st["mixed_cg_iterations"] + (r["cg_iterations"]
+                                               if fp64 else 0)
             k2 += per_factor * (mixed + fp64)
     return {"band_matvec": k1, "gj_inv": k2}
 
@@ -978,6 +982,12 @@ def solve_launches(res, cg_cap: int, precond_matvecs: int = 0,
     cg = int(res.total_cg_iterations) if graphed else it * cg_cap
     return {"band_matvec": cg + precond_matvecs * (cg + it),
             "gj_inv": it * per_factor}
+
+
+def on_shards(want: dict, shards: int) -> dict:
+    """The launches `want` of one device's solve on a mesh of `shards` on
+    one card: K1 once per shard, K2 once (the factorization is gathered)."""
+    return dict(want, band_matvec=shards * want["band_matvec"])
 
 
 def check_launches(path: str, want: dict) -> None:
@@ -1464,19 +1474,33 @@ def phase_incremental(tmp: str, card: str) -> None:
         nodes=len(on["poses"]), switches=len(on["switches"]))
 
 
-def mesh_solve(prob, devices: list, path: str) -> dict:
-    """Phase 14(a) on one mesh: the product solve, counted, then timed."""
-    mesh = make_mesh(devices=devices)
-    t0 = time.perf_counter()
-    sp = shard_problem(prob, mesh)
-    shard_s = time.perf_counter() - t0
+def route_of(problem) -> str:
+    """The route lm_solve takes for `problem`: the composed executables
+    (ops/graphs.py) or the eager loop."""
+    return "graphs" if graphs.serves(problem) else "eager"
+
+
+def mesh_eager(prob, sp, path: str, card: str, fields: dict):
+    """Phase 14(a) on a mesh over distinct cards (the eager route): the
+    product solve, counted, then timed beside the single device."""
     with counted(path):
         res = lm_solve(sp, **PRODUCT)
-        chi2 = float(res.final_cost)
+        float(res.final_cost)
+    want = on_shards(solve_launches(res, PRODUCT["max_cg_iterations"],
+                                    graphed=False), 4)
+    want["gj_inv"] *= len(sp.mesh.distinct)      # a factorization per card
+    check_launches(path, want)
     lm_solve(sp, **PRODUCT)                      # warm-up
-    times = timed_solves(lambda: float(lm_solve(sp, **PRODUCT).final_cost))
-    return dict(res=res, chi2=chi2, shard_s=shard_s, times=times,
-                distinct=len(mesh.distinct))
+    times = in_turns({
+        "eager": lambda: float(lm_solve(sp, **PRODUCT).final_cost),
+        "single_device": lambda: float(lm_solve(prob, **PRODUCT)
+                                       .final_cost)}, reps=3)
+    say(path, **fields,
+        launches=json.dumps(PATH_LAUNCHES[path], separators=(",", ":")),
+        **{f"median_ms_{k}": float(np.median(v)) for k, v in times.items()},
+        **{f"{k}_ms": json.dumps([round(t, 3) for t in v])
+           for k, v in times.items()}, card=repr(card))
+    return res
 
 
 def phase_mesh(dev, card: str) -> None:
@@ -1485,16 +1509,29 @@ def phase_mesh(dev, card: str) -> None:
     # (a) the single-device reference of this run, uncounted
     one = lm_solve(prob, **PRODUCT)
     chi2_1 = float(one.final_cost)
-    lm_solve(prob, **PRODUCT)
-    t_one = timed_solves(lambda: float(lm_solve(prob, **PRODUCT).final_cost))
     runs = [("mesh", [str(dev)] * 4)]
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
         runs.append(("mesh-distinct-cards",
                      [f"cuda:{i % n_cards}" for i in range(4)]))
     for path, devices in runs:
-        m = mesh_solve(prob, devices, path)
-        res, chi2 = m["res"], m["chi2"]
+        t0 = time.perf_counter()
+        sp = shard_problem(prob, make_mesh(devices=devices))
+        distinct = len(sp.mesh.distinct)
+        fields = dict(route=route_of(sp), shards=4, distinct_cards=distinct,
+                      ghost_rows_per_shard=sp.layout.ghosts[0].shape[0],
+                      shard_problem_s=round(time.perf_counter() - t0, 4))
+        if fields["route"] != ("graphs" if distinct == 1 else "eager"):
+            raise AssertionError(f"{path}: route {fields['route']} for a "
+                                 f"mesh on {distinct} cards")
+        if distinct == 1:
+            res = graphed_against_eager(
+                sp, PRODUCT, path, card, reps=3, fields=fields,
+                also={"single_device": lambda: float(lm_solve(
+                    prob, **PRODUCT).final_cost)})["result"]
+        else:
+            res = mesh_eager(prob, sp, path, card, fields)
+        chi2 = float(res.final_cost)
         if not (within_quality(chi2, CHI2_REF)
                 and abs(chi2 - chi2_1) <= 1e-3 * chi2_1):
             raise AssertionError(f"{path}: chi^2 {chi2} vs the reference "
@@ -1505,11 +1542,7 @@ def phase_mesh(dev, card: str) -> None:
         if tuple(res.q.shape) != (prob.n_cap, 4) or res.q.device != dev:
             raise AssertionError(f"{path}: result {tuple(res.q.shape)} on "
                                  f"{res.q.device}")
-        one_dev = solve_launches(res, PRODUCT["max_cg_iterations"],
-                                 graphed=False)
-        check_launches(path, {"band_matvec": 4 * one_dev["band_matvec"],
-                              "gj_inv": m["distinct"] * one_dev["gj_inv"]})
-        say("mesh", path=path, shards=4, distinct_cards=m["distinct"],
+        say("mesh-vs-single-device", path=path, route=fields["route"],
             chi2=chi2, single_device_chi2=chi2_1,
             rel_diff=abs(chi2 - chi2_1) / chi2_1,
             gap=f"{chi2 / CHI2_REF - 1:+.4%}",
@@ -1517,23 +1550,19 @@ def phase_mesh(dev, card: str) -> None:
             single_device_lm_iterations=int(one.iterations),
             cg_iterations=int(res.total_cg_iterations),
             single_device_cg_iterations=int(one.total_cg_iterations),
-            launches=json.dumps(PATH_LAUNCHES[path], separators=(",", ":")),
-            single_device_launches=json.dumps(one_dev, separators=(",", ":")),
-            shard_problem_s=round(m["shard_s"], 4),
-            median_ms_per_solve=float(np.median(m["times"])),
-            all_ms=json.dumps([round(t, 3) for t in m["times"]]),
-            single_device_median_ms=float(np.median(t_one)),
-            single_device_all_ms=json.dumps([round(t, 3) for t in t_one]),
             card=repr(card))
     if n_cards < 2:
         print("[mesh] distinct-card copies not exercised (1 card)",
               flush=True)
 
-    # (b) __graft_entry__.dryrun_multichip's certificate, on the card
+    # (b) __graft_entry__.dryrun_multichip's certificate, on the card,
+    # graphed, and bit for bit the eager 8-shard solve
     prob64 = circle_problem(5000, 10000, 8192, 16384, np.float64, dev)
     kw = dict(max_iterations=2, max_cg_iterations=8,
               preconditioner="band+coarse", coarse_group=64, bcr_levels=2)
     sp64 = shard_problem(prob64, make_mesh(devices=[str(dev)] * 8))
+    route = route_of(sp64)
+    eager_sh = lm_ops._lm_solve_eager(sp64, **kw)
     with counted("mesh-certificate"):
         t0 = time.perf_counter()
         res_sh = lm_solve(sp64, **kw)
@@ -1545,26 +1574,31 @@ def phase_mesh(dev, card: str) -> None:
     wall_1 = time.perf_counter() - t0
     diffs = {name: float((getattr(res_sh, name) - getattr(res_1, name))
                          .abs().max()) for name in ("q", "t", "switch")}
-    ok = (c_sh <= float(res_sh.initial_cost) * 1.000001
+    ok = (route == "graphs" and same_result(res_sh, eager_sh)
+          and c_sh <= float(res_sh.initial_cost) * 1.000001
           and abs(c_sh - c_1) <= 1e-9 * max(1.0, abs(c_1))
+          and int(res_sh.iterations) == int(res_1.iterations)
+          and int(res_sh.total_cg_iterations)
+          == int(res_1.total_cg_iterations)
           and diffs["q"] <= 1e-9 and diffs["t"] <= 1e-8
           and diffs["switch"] <= 1e-9)
     if not ok:
-        raise AssertionError(f"fp64 8-shard certificate: chi^2 {c_sh} vs "
-                             f"{c_1}, max diffs {diffs}")
-    one_dev = solve_launches(res_sh, kw["max_cg_iterations"], graphed=False)
-    check_launches("mesh-certificate",
-                   {"band_matvec": 8 * one_dev["band_matvec"],
-                    "gj_inv": one_dev["gj_inv"]})
-    say("mesh-certificate", shards=8, dtype="float64", chi2=c_sh,
-        unsharded_chi2=c_1, abs_diff=abs(c_sh - c_1),
+        raise AssertionError(f"fp64 8-shard certificate ({route}): chi^2 "
+                             f"{c_sh} vs {c_1}, max diffs {diffs}, bit for "
+                             f"bit the eager mesh: "
+                             f"{same_result(res_sh, eager_sh)}")
+    check_launches("mesh-certificate", on_shards(
+        solve_launches(res_sh, kw["max_cg_iterations"]), 8))
+    say("mesh-certificate", route=route, shards=8, dtype="float64",
+        chi2=c_sh, unsharded_chi2=c_1, abs_diff=abs(c_sh - c_1),
         max_abs_dq=diffs["q"], max_abs_dt=diffs["t"],
         max_abs_dswitch=diffs["switch"], lm_iterations=int(res_sh.iterations),
         cg_iterations=int(res_sh.total_cg_iterations),
+        bit_equal_to_eager=True,
         launches=json.dumps(PATH_LAUNCHES["mesh-certificate"],
                             separators=(",", ":")),
-        wall_s=round(wall_sh, 4), unsharded_wall_s=round(wall_1, 4),
-        card=repr(card))
+        first_solve_wall_s=round(wall_sh, 4),
+        unsharded_wall_s=round(wall_1, 4), card=repr(card))
 
     # (c) pcg_sharded on phase 5's first reduced system, 8 shards
     blocks = gn.assemble_t(prob, prob.q, prob.t, prob.switch)
@@ -1598,7 +1632,8 @@ def phase_mesh(dev, card: str) -> None:
     if not mv_rel <= 1e-5:
         raise AssertionError(f"sharded matvec vs single-device: rel err "
                              f"{mv_rel}")
-    say("mesh-pcg-sharded", shards=8, dtype="float32", coarse_group=64,
+    say("mesh-pcg-sharded", route="eager", shards=8, dtype="float32",
+        coarse_group=64,
         rel_residual=rel, cg_iterations=k1["band_matvec"] // 8,
         launches=json.dumps(k1, separators=(",", ":")), wall_s=round(wall, 4),
         halo_matvec_max_abs_err=abs_err, halo_matvec_max_rel_err=mv_rel,
@@ -1608,14 +1643,17 @@ def phase_mesh(dev, card: str) -> None:
     mesh_escalation(dev, card, prob)
 
 
-def replay_engine(rec, dev, every: int, mesh=None) -> tuple:
+def replay_engine(rec, dev, every: int, mesh=None, warm=None,
+                  path=None) -> tuple:
     """Phase 14(d): `rec` replayed through a SolverEngine (on `mesh` with
     async dispatch, else on `dev` synchronously), without the escalation
     ladder so that its rows fix its launches, and in fp64: in fp32 the two
     orders of summation flip an LM stop now and then, which moved poses by
     2e-4 of their scale on a 600-node version of the stream (CPU), where
-    fp64 agreed to 1e-13. Returns (trigger rows, final poses (n, 7), wall
-    seconds)."""
+    fp64 agreed to 1e-13. `warm` (max_nodes, max_edges): the engine's
+    warmup over every pair of buckets up to them first; `path`: the replay
+    (not the warmup) counted under that name. Returns (trigger rows, final
+    poses (n, 7), wall seconds, the engine)."""
     cfg = Config()
     cfg = dataclasses.replace(
         cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False,
@@ -1626,45 +1664,62 @@ def replay_engine(rec, dev, every: int, mesh=None) -> tuple:
                                  n_devices=len(mesh) if mesh else 1))
     store = store_mod.GraphStore(initial_capacity=rec.node_len)
     eng = SolverEngine(store, cfg, device=dev, mesh=mesh)
-    t0 = time.perf_counter()
-    cli.replay_events(rec, store, eng, Composer(store, eng), every)
-    wall = time.perf_counter() - t0
+    if warm is not None:
+        eng.warmup(*warm, proportional=False)
+    with counted(path) if path else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        cli.replay_events(rec, store, eng, Composer(store, eng), every)
+        wall = time.perf_counter() - t0
     poses = np.array([np.concatenate(eng.get_node_pose(i))
                       for i in range(eng.n_opt_variables())])
     rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
-    return rows, poses, wall
+    return rows, poses, wall, eng
+
+
+# phase 14(d)'s stream (make_stream's sizes): nodes and loop edges, up to
+# which both engines' warmups capture every pair of buckets
+MESH_STREAM = (5000, 2500)
 
 
 def mesh_replay(dev, card: str) -> None:
     """Phase 14(d) (see the module note); the unmeshed run is uncounted."""
     with tempfile.TemporaryDirectory(prefix="kpg") as tmp:
         stream = os.path.join(tmp, "stream.json")
-        info = make_stream(stream)
+        info = make_stream(stream, n=MESH_STREAM[0], n_loops=MESH_STREAM[1])
         rec = store_mod.GraphStore.load_from_json(stream)
     every = info["events"] // 10
-    rows_1, poses_1, wall_1 = replay_engine(rec, dev, every)
+    rows_1, poses_1, wall_1, _ = replay_engine(rec, dev, every,
+                                               warm=MESH_STREAM)
     mesh = make_mesh(devices=[str(dev)] * 4)
-    with counted("mesh-replay"):
-        rows, poses, wall = replay_engine(rec, dev, every, mesh)
-    one_dev = expected_launches(rows, graphed=False)
-    check_launches("mesh-replay", {"band_matvec": 4 * one_dev["band_matvec"],
-                                   "gj_inv": one_dev["gj_inv"]})
+    t0 = time.perf_counter()
+    rows, poses, wall, eng = replay_engine(rec, dev, every, mesh,
+                                           warm=MESH_STREAM,
+                                           path="mesh-replay")
+    total = time.perf_counter() - t0
+    ws = eng.warmup_stats
+    check_launches("mesh-replay", on_shards(expected_launches(rows), 4))
     lm, lm_1 = ([r["lm_iterations"] for r in x] for x in (rows, rows_1))
+    captures = [r["trigger_captures"] for r in rows]
     diff = float(np.abs(poses - poses_1).max()) if poses.shape == \
         poses_1.shape else math.inf
     scale = float(np.abs(poses_1).max())
     sizes = [(r["node_len"], r["edge_len"]) for r in rows]
-    ok = (len(rows) >= 5 and lm == lm_1
+    ok = (len(rows) >= 5 and lm == lm_1 and not any(captures)
+          and eng._graphed() and all(r["captured"] for r in ws)
           and sizes == [(r["node_len"], r["edge_len"]) for r in rows_1]
           and rows[-1]["delta_builds"] == 0 and diff <= 1e-8 * scale
           and all(r["final_cost"] <= r["initial_cost"] for r in rows))
     if not ok:
         raise AssertionError(f"mesh replay: triggers {sizes}, LM {lm} vs "
-                             f"LM {lm_1}, max pose diff {diff} (scale "
-                             f"{scale}), delta builds "
+                             f"LM {lm_1}, captures {captures}, max pose diff "
+                             f"{diff} (scale {scale}), delta builds "
                              f"{rows[-1]['delta_builds']}")
-    say("mesh-replay", shards=4, dispatch="async", dtype="float64",
-        triggers=len(rows),
+    say("mesh-replay", route="graphs", shards=4, dispatch="async",
+        dtype="float64", triggers=len(rows),
+        trigger_captures=sum(captures), warmed_buckets=len(ws),
+        setup_and_warmup_s=round(total - wall, 3),
+        capture_s_total=round(sum(r["capture_s"] for r in ws), 3),
+        pool_mb_total=round(sum(r["pool_mb"] for r in ws), 1),
         final_chi2=rows[-1]["final_cost"],
         unmeshed_final_chi2=rows_1[-1]["final_cost"],
         max_abs_pose_diff=diff, pose_scale=scale,
@@ -1680,38 +1735,49 @@ def mesh_replay(dev, card: str) -> None:
 
 def mesh_escalation(dev, card: str, prob) -> None:
     """Phase 14(e): the device ladder on a ShardedProblem (the unmeshed
-    ladder uncounted), escalation forced: the mixed rung on the 4 shards,
-    then the fp64 rung sharded again. Both run fp64 CG to its cap of 100
+    ladder uncounted), escalation forced, with a dispatch lock as the
+    engine passes it: the mixed rung on the 4 shards, then the fp64 rung
+    sharded again, each graphed in its step form (an init and a step per
+    LM iteration). Both run fp64 CG with forcing 1e-5 to its cap of 100
     iterations, where two runs whose sums differ only in order drift
     apart, hence 1e-3."""
     want, _, _ = lm_ops.escalate_resolve(prob, PRODUCT, 0, fp64_backend="tpu")
     chi2_1 = float(want.final_cost)
     sp = shard_problem(prob, make_mesh(devices=[str(dev)] * 4))
+    lock = threading.Lock()
+    launches = dict(graphs.LAUNCHES)
     with counted("mesh-escalation-fp64"):
         t0 = time.perf_counter()
-        got, rung, stats = lm_ops.escalate_resolve(sp, PRODUCT, 0,
-                                                   fp64_backend="tpu")
+        got, rung, stats = lm_ops.escalate_resolve(
+            sp, PRODUCT, 0, dispatch_lock=lock, fp64_backend="tpu")
         chi2 = float(got.final_cost)
         wall = time.perf_counter() - t0
+    ran = {n: graphs.LAUNCHES[n] - launches[n] for n in launches
+           if graphs.LAUNCHES[n] - launches[n]}
     check_launches("mesh-escalation-fp64",
-                   ladder_launches(got, rung, stats, shards=4,
-                                   graphed=False))
+                   on_shards(ladder_launches(got, rung, stats), 4))
+    steps = stats["mixed_lm_iterations"] + int(got.iterations)
     if not (rung == "fp64" and got.q.dtype == torch.float64
+            and ran == {"init": 2, "step": steps}
             and tuple(got.q.shape) == (prob.n_cap, 4)
             and within_quality(chi2, CHI2_REF)
             and abs(chi2 - chi2_1) <= 1e-3 * chi2_1):
         raise AssertionError(f"mesh device rung: rung {rung!r}, chi^2 {chi2} "
-                             f"vs the unmeshed {chi2_1} and {CHI2_REF}")
-    say("mesh-escalation", shards=4, rung=rung, chi2=chi2,
+                             f"vs the unmeshed {chi2_1} and {CHI2_REF}, "
+                             f"executables {ran} for {steps} LM iterations")
+    say("mesh-escalation", route=route_of(sp), form="step", shards=4,
+        rung=rung, chi2=chi2,
         unmeshed_chi2=chi2_1, rel_diff=abs(chi2 - chi2_1) / chi2_1,
         lm_iterations=int(got.iterations),
         cg_iterations=int(got.total_cg_iterations),
         unmeshed_cg_iterations=int(want.total_cg_iterations),
         mixed_lm_iterations=stats["mixed_lm_iterations"],
         mixed_cg_iterations=stats["mixed_cg_iterations"],
+        executables=json.dumps(ran),
         mixed_s=round(stats["mixed_s"], 4), wall_s=round(wall, 4),
         launches=json.dumps(PATH_LAUNCHES["mesh-escalation-fp64"],
                             separators=(",", ":")), card=repr(card))
+    graphs.clear()            # the mesh's Programs: no later phase runs them
 
 
 # the reference's array sizes (PoseGraphSLAM.cpp:17-25) as
@@ -2094,20 +2160,23 @@ def in_turns(fns: dict, reps: int) -> dict:
 
 
 def graphed_against_eager(prob, kw: dict, tag: str, card: str,
-                          precond_matvecs: int = 0, reps: int = 5) -> dict:
-    """Phase 18 (a), (b), (d)-(f): lm_solve(prob, **kw) through a Program
-    built for it (the cache emptied first, so that the build is measured),
-    in its two forms: the solve executable (one launch, one host read) and
-    the step executable per LM iteration under a dispatch lock; against
-    the eager loop on the same problem: every result field bit for bit,
-    the launches of each counted run as its LM and CG counts imply (K1 per
-    CG iteration that ran when graphed, per iteration of the cap when
-    eager), the build's costs, the launches and host reads per solve,
-    `reps` of each form in turns; the solve form's counted run is
-    profiled, and the profiler must see in it the launches that the
-    counters counted (check_profiled)."""
+                          precond_matvecs: int = 0, reps: int = 5,
+                          also=None, fields=None) -> dict:
+    """Phase 18 (a), (b), (d)-(f) and phase 14(a): lm_solve(prob, **kw)
+    through a Program built for it (the cache emptied first, so that the
+    build is measured), in its two forms: the solve executable (one
+    launch, one host read) and the step executable per LM iteration under
+    a dispatch lock; against the eager loop on the same problem: every
+    result field bit for bit, the launches of each counted run as its LM
+    and CG counts imply (K1 per CG iteration that ran when graphed, per
+    iteration of the cap when eager; once per shard on a mesh), the
+    build's costs, the launches and host reads per solve, `reps` of each
+    form and of each of `also` ({name: fn}) in turns; the solve form's
+    counted run is profiled, and the profiler must see in it the launches
+    that the counters counted (check_profiled). `fields` go on the printed
+    line."""
     graphs.clear()
-    cap = kw["max_cg_iterations"]
+    cap, shards = kw["max_cg_iterations"], prob.n_shards
     with counted(f"{tag}-eager"):
         eager = lm_ops._lm_solve_eager(prob, **kw)
         float(eager.final_cost)
@@ -2135,9 +2204,9 @@ def graphed_against_eager(prob, kw: dict, tag: str, card: str,
             host_reads=sum(graphs.HOST_READS.values()) - sum(reads.values()))
     res = runs["solve"]["res"]
     it = int(res.iterations)
-    want = solve_launches(res, cap, precond_matvecs)
-    check_launches(f"{tag}-eager", solve_launches(eager, cap, precond_matvecs,
-                                                  graphed=False))
+    want = on_shards(solve_launches(res, cap, precond_matvecs), shards)
+    check_launches(f"{tag}-eager", on_shards(solve_launches(
+        eager, cap, precond_matvecs, graphed=False), shards))
     for path in (f"{tag}-capture", tag, f"{tag}-step"):
         check_launches(path, want)
     if (PATH_WARMUP.get(tag) or PATH_WARMUP.get(f"{tag}-step")
@@ -2156,12 +2225,14 @@ def graphed_against_eager(prob, kw: dict, tag: str, card: str,
                               - getattr(eager, f).double()).abs().max())
                     for f in lm_ops.LMResult._fields} for k in differ}
         raise AssertionError(f"{tag}: results differ from eager: {diff}")
+    for fn in (also or {}).values():
+        fn()                                     # its warm-up
     times = in_turns({
         "solve": lambda: float(lm_solve(prob, **kw).final_cost),
         "step": lambda: float(lm_solve(prob, dispatch_lock=lock,
                                        **kw).final_cost),
         "eager": lambda: float(lm_ops._lm_solve_eager(
-            prob, **kw).final_cost)}, reps=reps)
+            prob, **kw).final_cost), **(also or {})}, reps=reps)
     med = {k: float(np.median(v)) for k, v in times.items()}
     # one more counted run of the solve form, profiled; last, because an
     # executable that ran under the profiler ran ~20 ms slower per 5k/10k
@@ -2174,8 +2245,9 @@ def graphed_against_eager(prob, kw: dict, tag: str, card: str,
     if not same_result(got[-1], eager):
         raise AssertionError(f"{tag}: the profiled solve differs")
     agrees = check_profiled(f"{tag}-profiled", prof)
-    out = dict(chi2=float(res.final_cost), initial_cost=float(
-        res.initial_cost), lm_iterations=it,
+    out = dict(
+        **(fields or {}), chi2=float(res.final_cost),
+        initial_cost=float(res.initial_cost), lm_iterations=it,
         accepted=int(res.successful_steps),
         cg_iterations=int(res.total_cg_iterations),
         distress_rejects=int(res.distress_rejects), bit_equal_to_eager=True,
@@ -2361,12 +2433,12 @@ def main(argv=None) -> None:
             phase_four_dof(dev, card)
         if run("incremental"):
             phase_incremental(tmp, card)
-    if run("mesh"):
-        phase_mesh(dev, card)
     if run("capacity"):
         phase_capacity(dev, card)
     if run("capacity_stream"):
         phase_capacity_stream(dev, card)
+    if run("mesh"):       # after phase 15, whose profiled solve comes first
+        phase_mesh(dev, card)
     if run("bench"):
         phase_bench(card)
     if run("graphs"):

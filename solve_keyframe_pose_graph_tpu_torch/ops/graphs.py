@@ -1,7 +1,9 @@
-"""The compiled, warmed solve program: lm_solve on a CUDA Problem through
-CUDA graphs (counterpart of the JAX package's ops/lm.py _AOT_CACHE,
-lm_solve_aot_prepare, lm_solve_aot, _shape_key, lm_solve_chunked and
-_chunk_programs, lm.py:646-842).
+"""The compiled, warmed solve program: lm_solve on a CUDA Problem, or on a
+mesh whose shards all sit on one card, through CUDA graphs (counterpart of
+the JAX package's ops/lm.py _AOT_CACHE, lm_solve_aot_prepare,
+lm_solve_aot, _shape_key, lm_solve_chunked and _chunk_programs,
+lm.py:646-842, which serve a GSPMD-sharded Problem as they serve one on
+one device).
 
 The reference compiles its LM solve once per bucket shape, ahead of time:
 the trigger runs it whole (lm_solve_aot, one dispatch whose LM and CG
@@ -9,11 +11,26 @@ loops are while_loops on the device), and the escalation rungs run it one
 LM iteration per dispatch under the device lock (lm_solve_chunked). The
 port captures the solve's pieces as CUDA graphs, once per key: the setup's
 keyword arguments (the solver configuration, with the coarse group
-resolved), each Problem field's shape and dtype (so n_cap, e_cap, p_cap,
-fanout and dtype; the reference's engine key omits p_cap, engine.py:696)
-and the device. The pieces are lm._lm_pieces':
+resolved), the shape and dtype of each of the problem's leaves (so n_cap,
+e_cap, p_cap, fanout and dtype, and on a mesh the split's; the
+reference's engine key omits p_cap, engine.py:696) and the device of each
+shard (the reference keys its executable on each leaf's sharding,
+lm.py:749-756).
 
-  * init: the loop rows' grouping, the assembly at the initial guesses and
+A problem reaches this module only through a small protocol, which
+solver/problem.Problem and parallel.ShardedProblem both answer: devices
+(one per shard), leaves() (the tensors a solve reads), static_copy() (a
+copy with leaves and derived buffers of its own) and refresh() (the
+derived buffers recomputed in place from the leaves, with no host read: a
+Problem's loop-row grouping; a mesh's sub-Problems' groupings, its owner
+sums' groupings and its gathered topology). A mesh's split has one shape
+per capacity bucket (parallel/sharding.py pads each shard's ghosts to a
+capacity of the bucket), so its loop states hold the same Shards of the
+same shapes from one graph of the bucket to the next.
+
+The pieces are lm._lm_pieces':
+
+  * init: the problem's refresh(), the assembly at the initial guesses and
     the loop's first state (the reference's init_fn);
   * pre: an LM iteration up to the CG start (the reduction, the band
     factorization with kernel K2, the coarse inverse, pcg_start);
@@ -32,12 +49,12 @@ host read of `done` (lm_solve_chunked at chunk_iters=1), so that a live
 trigger waits at most one LM iteration for the device.
 
 A Program holds static buffers, allocated before any capture and so
-outside the graphs' memory pools: a Problem whose leaves each solve copies
-in, the grouping, the LM loop state, the CG loop state, the two loops'
-caps and the pieces' run counts. The pieces end by writing the loop states
-in place; pre's other
-outputs (the reduced system, the factorizations) stay alive in its pool
-for cg_iter and post to read. Each solve clones the result out of the
+outside the graphs' memory pools: a static copy of the problem whose
+leaves each solve copies in and whose derived buffers init refreshes,
+the LM loop state, the CG loop state, the two loops' caps and the
+pieces' run counts. The pieces end by writing the loop states in place;
+pre's other outputs (the reduced system, the factorizations) stay alive
+in its pool for cg_iter and post to read. Each solve clones the result out of the
 static buffers: the next solve of the key overwrites them, and the engine,
 mixed_resolve and the escalation ladder keep results. A failed capture,
 composition or launch raises; nothing falls back to a host loop or the
@@ -97,12 +114,8 @@ import torch
 
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
-from solve_keyframe_pose_graph_tpu_torch.ops import gn as gn_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import graph_loops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
-from solve_keyframe_pose_graph_tpu_torch.solver.problem import (
-    FIELDS, LoopRows, Problem, loop_rows_by_node,
-)
 
 _cache_lock = threading.Lock()
 _programs: dict = {}           # key -> Program
@@ -127,13 +140,24 @@ def on_card(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def serves_devices(devices) -> bool:
+    """Whether solves on shards on `devices` replay graphs: one device
+    on_card, which every shard shares. A mesh over distinct cards solves
+    eagerly: the composed executables are conditional WHILE nodes
+    (csrc/graph_loops.cu), and CUDA requires every kernel in a conditional
+    node's body to belong to one context, that is one device, so one
+    executable cannot issue the shards' work on several cards."""
+    return len(set(devices)) == 1 and on_card(devices[0])
+
+
 def serves(problem) -> bool:
-    """Whether lm_solve takes the graphs for `problem`: a Problem, not a
-    mesh's, on a device on_card."""
-    return isinstance(problem, Problem) and on_card(problem.device)
+    """Whether lm_solve takes the graphs for `problem`: a Problem on a
+    device on_card, or a mesh's (parallel.ShardedProblem) whose shards all
+    sit on one such device (serves_devices)."""
+    return serves_devices(problem.devices)
 
 
-def resolved(problem: Problem, setup: dict) -> dict:
+def resolved(problem, setup: dict) -> dict:
     """lm._lm_setup's keyword arguments with the coarse group resolved as
     _lm_setup resolves it, so that both spellings share one key."""
     if setup.get("coarse_group") is None:
@@ -142,7 +166,7 @@ def resolved(problem: Problem, setup: dict) -> dict:
     return setup
 
 
-def setup_of(problem: Problem, **lm_kw) -> dict:
+def setup_of(problem, **lm_kw) -> dict:
     """The resolved _lm_setup keyword arguments of lm_solve(problem,
     **lm_kw), its defaults filled in."""
     args = inspect.signature(lm_ops.lm_solve).bind(problem, **lm_kw)
@@ -152,11 +176,12 @@ def setup_of(problem: Problem, **lm_kw) -> dict:
         if k not in ("problem", "max_iterations", "dispatch_lock")})
 
 
-def key(problem: Problem, setup: dict) -> tuple:
-    """The cache key of (problem, resolved setup)."""
-    leaves = tuple((tuple(v.shape), v.dtype)
-                   for v in (getattr(problem, f) for f in FIELDS))
-    return tuple(sorted(setup.items())), leaves, problem.device
+def key(problem, setup: dict) -> tuple:
+    """The cache key of (problem, resolved setup): the setup, the shape
+    and dtype of each of the problem's leaves (a mesh's: every shard's)
+    and the device of each shard (so the mesh's size and its device)."""
+    leaves = tuple((tuple(v.shape), v.dtype) for v in problem.leaves())
+    return tuple(sorted(setup.items())), leaves, tuple(problem.devices)
 
 
 def captures_on_this_thread() -> int:
@@ -170,22 +195,42 @@ def clear() -> None:
         _programs.clear()
 
 
+def _leaves(state) -> list:
+    """The tensors of a loop state, in a fixed order: NamedTuples and
+    dataclasses (gn.GNBlocksT) field by field, and a mesh's sharded
+    vectors (parallel.collectives.Shards) by their `parts`."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if dataclasses.is_dataclass(state):
+        items = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    else:
+        items = state if isinstance(state, tuple) else state.parts
+    return [x for v in items for x in _leaves(v)]
+
+
+def _map(fn, state):
+    """The loop state with fn applied to each of its tensors (_leaves)."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{
+            f.name: _map(fn, getattr(state, f.name))
+            for f in dataclasses.fields(state)})
+    if isinstance(state, tuple):
+        return type(state)(*(_map(fn, v) for v in state))
+    return type(state)(_map(fn, v) for v in state.parts)
+
+
 def _copy_into(dst, src) -> None:
-    """Copy every tensor leaf of the loop state src into dst's."""
-    for name in src._fields:
-        d, s = getattr(dst, name), getattr(src, name)
-        if isinstance(s, gn_ops.GNBlocksT):
-            for f in dataclasses.fields(s):
-                getattr(d, f.name).copy_(getattr(s, f.name))
-        elif d is not s:
+    """Copy every tensor of the loop state (or problem leaves) src into
+    dst's, where they are not the same tensor."""
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        if d is not s:
             d.copy_(s)
 
 
 def _clone_state(state):
-    return type(state)(*(
-        gn_ops.GNBlocksT(**{f.name: getattr(v, f.name).clone()
-                            for f in dataclasses.fields(v)})
-        if isinstance(v, gn_ops.GNBlocksT) else v.clone() for v in state))
+    return _map(torch.Tensor.clone, state)
 
 
 class Program:
@@ -193,19 +238,11 @@ class Program:
     executables of one key (see the module note). Built and captured by
     build(); launched by solve()."""
 
-    def __init__(self, problem: Problem, setup: dict):
+    def __init__(self, problem, setup: dict):
         self.key = key(problem, setup)
         self.setup = setup
         self.device = dev = problem.device
-        self.problem = Problem(**{
-            f: torch.empty(getattr(problem, f).shape,
-                           dtype=getattr(problem, f).dtype,
-                           device=dev) for f in FIELDS})
-        rows = loop_rows_by_node(problem.loop_b, problem.loop_a,
-                                 problem.loop_mask, problem.n_cap)
-        self.problem.loop_rows_by_node = LoopRows(
-            torch.empty_like(rows.order), torch.empty_like(rows.lengths),
-            rows.n)
+        self.problem = problem.static_copy()
         self.pieces = lm_ops._lm_pieces(self.problem, **setup)
         self.ops = self.pieces.ops
         self.load(problem)
@@ -222,24 +259,19 @@ class Program:
         self.record: dict = {}
         self.busy = threading.Lock()           # held by the solve using it
 
-    def load(self, problem: Problem) -> None:
-        """Copy the leaves of `problem` into the static Problem."""
-        for f in FIELDS:
-            getattr(self.problem, f).copy_(getattr(problem, f))
+    def load(self, problem) -> None:
+        """Copy the leaves of `problem` into the static problem's."""
+        _copy_into(self.problem.leaves(), problem.leaves())
 
     def _init_state(self):
-        """The loop's first state from the static Problem: the grouping
-        and, under precision="mixed", the fp64 copy refreshed first."""
+        """The loop's first state from the static problem: what its leaves
+        determine (its refresh(): the loop rows' grouping, and a mesh's
+        owner sums and topology) and, under precision="mixed", the fp64
+        copy refreshed first."""
         p = self.problem
-        rows = loop_rows_by_node(p.loop_b, p.loop_a, p.loop_mask, p.n_cap)
-        p.loop_rows_by_node.order.copy_(rows.order)
-        p.loop_rows_by_node.lengths.copy_(rows.lengths)
-        hi = self.ops.hi
-        if hi is not p:
-            for f in FIELDS:
-                d, s = getattr(hi, f), getattr(p, f)
-                if d is not s:
-                    d.copy_(s)
+        p.refresh()
+        if self.ops.hi is not p:
+            _copy_into(self.ops.hi.leaves(), p.leaves())
         return self.pieces.init()
 
     def _ran(self, name: str) -> None:
@@ -368,7 +400,7 @@ def _capture(fn, device: torch.device, pool=None):
     return graph, t1 - t0, nbytes
 
 
-def build(problem: Problem, setup: dict) -> Program:
+def build(problem, setup: dict) -> Program:
     """A Program for (problem, resolved setup), warmed up, captured and
     composed. The caller holds the dispatch lock and _capture_lock."""
     t0 = time.perf_counter()
@@ -400,6 +432,7 @@ def build(problem: Problem, setup: dict) -> Program:
     p = prog.problem
     prog.record = dict(
         n_cap=p.n_cap, e_cap=p.e_cap, p_cap=p.p_cap, fanout=p.fanout,
+        shards=p.n_shards,
         dtype=str(p.dtype).split(".")[-1], precision=setup["precision"],
         preconditioner=setup["preconditioner"],
         residual_mode=setup["residual_mode"],
@@ -416,7 +449,7 @@ def build(problem: Problem, setup: dict) -> Program:
     return prog
 
 
-def _program(problem: Problem, setup: dict) -> tuple[Program, bool]:
+def _program(problem, setup: dict) -> tuple[Program, bool]:
     """The cached Program of (problem, resolved setup), built if there is
     none, and whether this call built it. The caller holds the dispatch
     lock; builds run one at a time in the process."""
@@ -443,7 +476,7 @@ def _drop(prog: Program) -> None:
             del _programs[prog.key]
 
 
-def prepare(problem: Problem, **lm_kw) -> dict:
+def prepare(problem, **lm_kw) -> dict:
     """Make sure that the Program that lm_solve(problem, **lm_kw) replays
     is cached, building (capturing) it if it is not: the warmup's entry
     point. The caller holds the dispatch lock. Returns the Program's record
@@ -456,13 +489,13 @@ def prepare(problem: Problem, **lm_kw) -> dict:
     return dict(prog.record, built=built)
 
 
-def solve(problem: Problem, setup: dict, *, max_iterations: int,
+def solve(problem, setup: dict, *, max_iterations: int,
           dispatch_lock=None) -> lm_ops.LMResult:
-    """lm_solve of a CUDA Problem through the Program of its key (built at
-    first use). Without dispatch_lock: the leaves copied in, one launch of
-    the solve executable and the result cloned out with one host read.
-    With it: under the lock the leaves copied in, init launched and `k`
-    and `done` read; then each step launch and its read under the lock
+    """lm_solve of a problem that serves() through the Program of its key
+    (built at first use). Without dispatch_lock: the leaves copied in, one
+    launch of the solve executable and the result cloned out with one host
+    read. With it: under the lock the leaves copied in, init launched and
+    `k` and `done` read; then each step launch and its read under the lock
     until the LM loop's cond fails; then the result. A Program whose
     launch failed is dropped from the cache; a failed coarse factorization
     (LinAlgError) leaves it there."""

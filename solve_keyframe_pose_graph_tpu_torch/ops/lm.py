@@ -38,17 +38,20 @@ CG loops on the device in conditional WHILE nodes on the reference's
 conds (the counterpart of the reference's compiled, cached solve program,
 lm.py:493-842): one launch and one host read per solve, or, with a
 dispatch_lock, one launch and one host read per LM iteration under the
-lock (lm_solve_chunked). A CPU Problem and a problem on a mesh run the
-eager form (_lm_setup's body: pre, cg_iter at the fixed cap under
+lock (lm_solve_chunked). A mesh whose shards all sit on one card
+(parallel.ShardedProblem) takes the same route, through the Programs of
+its own keys, as the reference dispatches its one executable on a
+GSPMD-sharded Problem. A CPU Problem and a mesh over distinct cards run
+the eager form (_lm_setup's body: pre, cg_iter at the fixed cap under
 pcg_nodes' done mask, post; the same arithmetic), reading `done` on the
 host once per LM iteration, so at most max_iterations + 1 host syncs.
-The loop body reaches
-the Problem only through an ops object, which also holds the precision's
-two copies: DeviceOps for a Problem, and the one a problem of another
-layout brings (parallel.ShardedProblem.lm_ops, whose vectors are per-shard
-blocks; the reference runs the same lm_solve on a GSPMD-sharded Problem).
-The rungs reach a problem's layout only through its n_shards, gathered(),
-reshard() and astype(), so this module imports nothing of parallel/.
+The loop body reaches the Problem only through an ops object, which also
+holds the precision's two copies: DeviceOps for a Problem, and the one a
+problem of another layout brings (parallel.ShardedProblem.lm_ops, whose
+vectors are per-shard blocks). The rungs reach a problem's layout only
+through its n_shards, gathered(), reshard() and astype(), and
+ops/graphs.py through its devices, leaves(), static_copy() and
+refresh(), so this module imports nothing of parallel/.
 
 Escalation ladder (the reference's lm.py:900-952). A distressed fp32 solve
 (needs_escalation) is re-solved from the same initial guesses on the rungs
@@ -533,9 +536,11 @@ def lm_solve(
     its capacity bucket and configuration (ops/graphs.py: captured at first
     use, launched after; the LM and CG loops end on the device), a CPU
     Problem by the same pieces run eagerly, CG at its fixed cap. A
-    parallel.ShardedProblem is solved eagerly over its mesh (parallel/
-    sharded_lm.py), with the same mathematics; its result's q, t and switch
-    are gathered on the mesh's first device."""
+    parallel.ShardedProblem is solved over its mesh (parallel/
+    sharded_lm.py), with the same mathematics: through the composed
+    executables of its key when its shards all sit on one card
+    (graphs.serves), else eagerly; its result's q, t and switch are
+    gathered on the mesh's first device."""
     from solve_keyframe_pose_graph_tpu_torch.ops import graphs
 
     setup = dict(

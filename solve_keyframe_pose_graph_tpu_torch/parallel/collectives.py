@@ -24,8 +24,9 @@ from __future__ import annotations
 
 import operator
 
-import numpy as np
 import torch
+
+from solve_keyframe_pose_graph_tpu_torch.solver.problem import group_rows
 
 
 def rank_sum(values) -> torch.Tensor:
@@ -189,44 +190,63 @@ def right_halo(x: Shards, w: int, dim: int = -1) -> list:
 
 class OwnerSum:
     """Sums the rows that shards hold for other shards' nodes into their
-    owners. ghosts[r] lists, sorted, the global node ids for which shard r
-    holds rows (none in its own block); node u belongs to shard u // nl.
+    owners. ghosts[r] (on any device) lists the global node ids of shard
+    r's rows; node u belongs to shard u // nl, and a row whose id lies in
+    shard r's own block is a pad row, which no owner receives (sharding.py
+    pads each shard's ghosts to one length with ids of its own block).
     Called with one (len(ghosts[r]), C) tensor per shard, it returns one
-    (nl, C) tensor per owner: row v the sum over r, in rank order, of shard
-    r's row for node owner * nl + v, zero where no shard holds one. One
-    fixed-order segment sum per owner, built once."""
+    (nl, C) tensor per owner: row v the sum over r, in rank order, of
+    shard r's row for node owner * nl + v, zero where no shard holds one.
+
+    One fixed-order segment sum per owner over every shard's rows in rank
+    order, grouped as solver/problem.py groups loop rows (group_rows: the
+    rows of each node in row order, then the rows that no node sums, in
+    short trailing segments that the sum computes and drops). The
+    grouping's shapes depend only on the ghosts' lengths, so it lives in
+    fixed buffers: refresh() recomputes it in place from the ghosts, with
+    no host read, as ops/graphs.py's init piece does for a Program's
+    layout."""
 
     def __init__(self, ghosts, nl: int, devices):
         self.nl = nl
-        self.devices = tuple(devices)
-        self.plans = []
-        for o, dev in enumerate(self.devices):
-            pieces, ids = [], []
-            for r, g in enumerate(ghosts):
-                # ghosts are sorted, so those shard o owns are one slice
-                a, b = np.searchsorted(g, [o * nl, (o + 1) * nl])
-                if b > a:
-                    pieces.append((r, int(a), int(b)))
-                    ids.append(g[a:b] - o * nl)
-            if not pieces:
-                self.plans.append(None)
-                continue
-            local = np.concatenate(ids)
-            order = np.argsort(local, kind="stable")   # rank order per node
-            self.plans.append((
-                pieces, torch.tensor(order, device=dev),
-                torch.tensor(np.bincount(local, minlength=nl), device=dev)))
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.ghosts = tuple(torch.as_tensor(g, dtype=torch.long, device=d)
+                            for g, d in zip(ghosts, self.devices))
+        self.plans = [self._plan(o) for o in range(len(self.devices))]
+
+    def _plan(self, o: int):
+        """Owner o's grouping of the shards' rows, or None when no shard
+        holds rows."""
+        dev, nl = self.devices[o], self.nl
+        if not sum(g.shape[0] for g in self.ghosts):
+            return None
+        keys = []
+        for r, g in enumerate(self.ghosts):
+            local = g.to(dev) - o * nl
+            if r == o:                  # ids of its own block: pad rows
+                local = torch.full_like(local, nl)
+            keys.append(torch.where((local >= 0) & (local < nl), local, nl))
+        return group_rows(torch.cat(keys), nl)
+
+    def refresh(self) -> None:
+        """Recompute each owner's grouping from the ghosts, in place."""
+        for o, plan in enumerate(self.plans):
+            if plan is not None:
+                new = self._plan(o)
+                plan.order.copy_(new.order)
+                plan.lengths.copy_(new.lengths)
 
     def __call__(self, rows) -> list:
+        C = rows[0].shape[1:]
+        every = {dev: torch.cat([x.to(dev) for x in rows])
+                 for dev in dict.fromkeys(self.devices)}
         out = []
         for plan, dev in zip(self.plans, self.devices):
-            C = rows[0].shape[1:]
             if plan is None:
                 out.append(torch.zeros((self.nl,) + C, dtype=rows[0].dtype,
                                        device=dev))
                 continue
-            pieces, order, counts = plan
-            got = torch.cat([rows[r][a:b].to(dev) for r, a, b in pieces])
-            out.append(torch.segment_reduce(got[order], "sum", lengths=counts,
-                                            axis=0, unsafe=True))
+            out.append(torch.segment_reduce(
+                every[dev][plan.order], "sum", lengths=plan.lengths, axis=0,
+                unsafe=True)[:self.nl])
         return out

@@ -32,9 +32,20 @@ order of some sums differs, each of them fixed (collectives.py):
     gathers r, applies them once per device and hands each shard its
     block. (The truncated BCR works on super-nodes of F nodes padded to a
     power of two, so its blocks do not line up with node shards.)
-  * CG dots and LM scalars: rank_sum, on shard 0's device; the LM loop
-    keeps its one host sync per iteration;
+  * CG dots and LM scalars: rank_sum, on shard 0's device;
   * switch recovery: on each edge shard against the gathered step.
+
+None of these reads a value on the host or copies one from it, and every
+index they use is a leaf of the ShardedProblem or is derived from its
+leaves by its refresh() (the sub-Problems' loop-row groupings, the owner
+sums' groupings, the gathered topology that the coarse level reads), and
+the ghost blocks have one length per capacity bucket (sharding.py). So a
+mesh whose shards all sit on one card is solved through ops/graphs.py's
+captured pieces as a Problem is, its LM and CG loops ending on the card;
+a failed coarse factorization travels in the LM loop's fault flag and
+raises after the loop. A mesh over distinct cards runs the same pieces
+eagerly (ops/graphs.py serves), CG at its fixed cap, with a host read of
+`done` per LM iteration.
 """
 
 from __future__ import annotations
@@ -243,20 +254,18 @@ class ShardedOps(lm_ops.DeviceOps):
         return apply
 
     def precond(self, red: gn_ops.ReducedSystemT, mv):
-        """(apply, None): the mesh runs eagerly, so a failed coarse
-        factorization raises here."""
-        return self._precond(red, mv), None
-
-    def _precond(self, red: gn_ops.ReducedSystemT, mv):
+        """(apply, info), as lm.DeviceOps.precond: info (on shard 0's
+        device) is nonzero when a coarse Cholesky factorization failed on
+        any of the mesh's devices, None without a coarse level."""
         kind = self.preconditioner
         if kind == "identity":
-            return lambda r: r
+            return (lambda r: r), None
         if kind == "jacobi":
             Minv = [smallinv.best_inv(gn_ops.t_blocks_to_aos(D))
                     for D in red.Dh.parts]
-            return lambda r: Shards(
+            return (lambda r: Shards(
                 torch.einsum("uij,uj->ui", M, x.T).T.contiguous()
-                for M, x in zip(Minv, r.parts))
+                for M, x in zip(Minv, r.parts))), None
         Dh, Bh = all_gather(red.Dh), all_gather(red.Bh)
         fac = {dev: lm_ops.band_factor(Dh[dev], Bh[dev], self.bcr_levels)
                for dev in Dh}
@@ -265,26 +274,29 @@ class ShardedOps(lm_ops.DeviceOps):
             return band_ops.band_precond_apply(fac[dev], r.T).T
 
         if kind == "band":
-            return self._gathered(band)
+            return self._gathered(band), None
         group, sp = self.coarse_group, self.sp
         Aba = all_gather(red.Aba_h)
-        Hc_inv = {}
+        Hc_inv, failed = {}, []
         for dev in Dh:
+            topo = sp.topology(dev)
             Hc_inv[dev], info = coarse_ops.build_coarse_inverse_arrays(
-                Dh[dev], Bh[dev], Aba[dev], sp.topology(dev).loop_b,
-                sp.topology(dev).loop_a, sp.topology(dev).loop_rows_by_node,
-                sp.fanout, group)
-            coarse_ops.check_cholesky(info)
+                Dh[dev], Bh[dev], Aba[dev], topo.loop_b, topo.loop_a,
+                topo.loop_rows_by_node, sp.fanout, group)
+            failed.append((info != 0).to(torch.int32))
 
         def coarse(dev, r):
             return coarse_ops.coarse_apply(
                 Hc_inv[dev], sp.topology(dev).free_mask, r, group)
 
         if kind == "band+coarse":
-            return self._gathered(lambda dev, r: band(dev, r)
-                                  + coarse(dev, r))
-        return lambda r: coarse_ops.two_grid_apply(
-            self._gathered(band), self._gathered(coarse), mv, r)
+            apply = self._gathered(lambda dev, r: band(dev, r)
+                                   + coarse(dev, r))
+        else:
+            def apply(r):
+                return coarse_ops.two_grid_apply(
+                    self._gathered(band), self._gathered(coarse), mv, r)
+        return apply, rank_sum(failed)
 
     def recover(self, red: gn_ops.ReducedSystemT, x: Shards) -> Shards:
         xl = self._local(x, -1)

@@ -19,12 +19,25 @@ Each shard holds a sub-Problem on its device whose local node order is
     [left halo: F nodes | owned: nl nodes | ghosts]
 
 and whose edges are its edge block with local endpoints, so ops/gn.py's
-assemblies run on it unchanged. In the sub-Problem every node carries
-node_mask 1 (the owner applies the real mask after the exchange), the halo
-nodes' and ghosts' odometry slots are masked (those edges belong to other
-shards), free_mask holds each local node's real value (zero for shard 0's
-halo, as the single-device shift fills zeros), shard 0's halo poses are the
-identity, and priors on nodes the shard does not own are masked.
+assemblies run on it unchanged. Its ghost block has a fixed length, g_cap
+= ghost_capacity(n_cap, e_cap, F, P): min(2 el, n_cap - nl), since a
+shard's el edges have at most 2 el endpoints and at most n_cap - nl nodes
+lie outside its block. So every shape of the split depends on the
+capacity bucket and the mesh alone, never on where the loops land, and a
+bucket's captured solve (ops/graphs.py) serves every graph of it. g_cap is
+not rounded further: it is already a function of the bucket, and each pad
+slot is carried by every gather, assembly and owner sum. The real ghosts
+come first, sorted; the pad slots after them have the identity pose,
+free_mask 0, masked odometry slots and no edge, and the ghost id of the
+shard's first owned node, which the owner sums read as a pad row
+(collectives.OwnerSum) and no edge reads.
+
+In the sub-Problem every node carries node_mask 1 (the owner applies the
+real mask after the exchange), the halo nodes' and ghosts' odometry slots
+are masked (those edges belong to other shards), free_mask holds each
+local node's real value (zero for shard 0's halo, as the single-device
+shift fills zeros), shard 0's halo poses are the identity, and priors on
+nodes the shard does not own are masked.
 """
 
 from __future__ import annotations
@@ -122,13 +135,20 @@ def split_sizes(n_cap: int, e_cap: int, fanout: int, P: int) -> tuple:
     return nl, e_cap // P
 
 
+def ghost_capacity(n_cap: int, e_cap: int, fanout: int, P: int) -> int:
+    """g_cap, the ghost rows of each shard (see the module note)."""
+    nl, el = split_sizes(n_cap, e_cap, fanout, P)
+    return min(2 * el, n_cap - nl)
+
+
 @dataclasses.dataclass
 class Layout:
     """How a mesh splits one graph (shared by ShardedProblem and
     sharded_pcg.pcg_sharded). Shard i owns nodes [i*nl, (i+1)*nl) and
-    edges [i*el, (i+1)*el); ghosts[i] (long, on its device) lists the
-    global ids of its ghost nodes, sorted; loops[i] carries its edges with
-    local endpoints (loop_b, loop_a, loop_rows_by_node: what
+    edges [i*el, (i+1)*el); ghosts[i] (long, (g_cap,), on its device)
+    lists the global ids of its ghost nodes, sorted, then its pad slots'
+    ids (the module note); loops[i] carries its edges with local
+    endpoints (loop_b, loop_a, loop_rows_by_node: what
     gn.loop_matvec_t and gn.recover_switches_t read); owner_sum sums ghost
     rows into their owners."""
 
@@ -141,10 +161,12 @@ class Layout:
     owner_sum: OwnerSum
 
 
-def _split_edges(loop_b, loop_a, live, nl: int, el: int, F: int, P: int):
-    """Per shard: (ghost ids, local b, local a) as numpy arrays. Ghosts are
-    the live edges' endpoints outside the shard's block; a masked edge's
-    endpoints map to the first owned node (its rows are zero)."""
+def _split_edges(loop_b, loop_a, live, nl: int, el: int, F: int, P: int,
+                 g_cap: int):
+    """Per shard: (ghost ids padded to g_cap, their real count, local b,
+    local a) as numpy arrays. Ghosts are the live edges' endpoints outside
+    the shard's block; a masked edge's endpoints map to the first owned
+    node (its rows are zero)."""
     out = []
     for i in range(P):
         lo, hi = i * nl, (i + 1) * nl
@@ -159,7 +181,9 @@ def _split_edges(loop_b, loop_a, live, nl: int, el: int, F: int, P: int):
                            F + nl + np.searchsorted(ghosts, ids))
             return np.where(m, idx, F).astype(np.int32)
 
-        out.append((ghosts, local(b), local(a)))
+        padded = np.full(g_cap, lo, np.int64)
+        padded[:len(ghosts)] = ghosts
+        out.append((padded, len(ghosts), local(b), local(a)))
     return out
 
 
@@ -173,9 +197,10 @@ def edge_layout(loop_b, loop_a, n_cap: int, fanout: int, mesh: Mesh,
     live = (np.ones(loop_b.shape, bool) if live is None
             else np.asarray(live.cpu()) > 0.5)
     nl, el = split_sizes(n_cap, loop_b.shape[0], fanout, P)
-    split = _split_edges(loop_b, loop_a, live, nl, el, fanout, P)
+    g_cap = ghost_capacity(n_cap, loop_b.shape[0], fanout, P)
+    split = _split_edges(loop_b, loop_a, live, nl, el, fanout, P, g_cap)
     ghosts, loops = [], []
-    for i, (dev, (g, b, a)) in enumerate(zip(mesh.devices, split)):
+    for i, (dev, (g, _, b, a)) in enumerate(zip(mesh.devices, split)):
         ghosts.append(torch.tensor(g, dtype=torch.long, device=dev))
         lb = torch.tensor(b, device=dev)
         la = torch.tensor(a, device=dev)
@@ -183,9 +208,9 @@ def edge_layout(loop_b, loop_a, n_cap: int, fanout: int, mesh: Mesh,
         loops.append(SimpleNamespace(
             loop_b=lb, loop_a=la,
             loop_rows_by_node=loop_rows_by_node(lb, la, m.double(),
-                                                fanout + nl + len(g))))
+                                                fanout + nl + g_cap)))
     return Layout(mesh, fanout, nl, el, tuple(ghosts), tuple(loops),
-                  OwnerSum([g for g, _, _ in split], nl, mesh.devices))
+                  OwnerSum(ghosts, nl, mesh.devices))
 
 
 @dataclasses.dataclass
@@ -261,14 +286,68 @@ class ShardedProblem:
         """The LM loop's operations over the mesh (lm.DeviceOps' methods)."""
         return ShardedOps(self, **kw)
 
+    # the static-buffer protocol that ops/graphs.py reads (Problem has the
+    # single-device answers): devices, leaves, static_copy, refresh
+    @property
+    def devices(self) -> tuple:
+        """The device of each shard, in rank order."""
+        return self.mesh.devices
+
+    def leaves(self) -> tuple:
+        """The tensors that a solve reads, in a fixed order: each
+        sub-Problem's fields, the owned nodes' masks, the edges' global
+        endpoints, the priors' indices and mask, and the ghost ids."""
+        return (*(x for s in self.subs for x in s.leaves()),
+                *self.node_mask, *self.loop_b, *self.loop_a, self.prior_idx,
+                self.prior_mask, *self.layout.ghosts)
+
+    def static_copy(self) -> ShardedProblem:
+        """A copy whose leaves and derived buffers are its own: the
+        sub-Problems' loop-row groupings, the owner sums' groupings and the
+        gathered topology of each of the mesh's devices."""
+        subs = tuple(s.static_copy() for s in self.subs)
+        ghosts = tuple(g.clone() for g in self.layout.ghosts)
+        layout = dataclasses.replace(
+            self.layout, ghosts=ghosts, loops=subs,
+            owner_sum=OwnerSum(ghosts, self.layout.nl, self.mesh.devices))
+        sp = ShardedProblem(
+            self.mesh, layout, subs,
+            *(tuple(x.clone() for x in xs) for xs in (
+                self.node_mask, self.loop_b, self.loop_a)),
+            self.prior_idx.clone(), self.prior_mask.clone())
+        for dev in self.mesh.distinct:            # built, then refreshed
+            sp.topology(dev).loop_rows_by_node
+        return sp
+
+    def refresh(self) -> None:
+        """Recompute, in place and with no host read, what the leaves
+        determine: the sub-Problems' loop-row groupings, the owner sums'
+        groupings and each gathered topology built so far."""
+        for s in self.subs:
+            s.refresh()
+        self.layout.owner_sum.refresh()
+        for dev, topo in self._topology.items():
+            for d, v in zip(topo.leaves(),
+                            gather_problem(self, dev).leaves()):
+                d.copy_(v)
+            topo.refresh()
+
     def topology(self, device) -> Problem:
-        """The gathered Problem on `device`, built once: the band+coarse
-        preconditioners read its loop endpoints, loop_rows_by_node and
-        free_mask (never its poses, which the solve does not update)."""
+        """The gathered Problem on `device`, built once (and refreshed by
+        refresh()): the band+coarse preconditioners read its loop
+        endpoints, loop_rows_by_node and free_mask (never its poses, which
+        the solve does not update)."""
         device = torch.device(device)
         if device not in self._topology:
             self._topology[device] = gather_problem(self, device)
         return self._topology[device]
+
+
+def _identity_poses(p: Problem, n: int) -> dict:
+    """n identity poses: q (n, 4), t (n, 3)."""
+    q = p.q.new_zeros((n, 4))
+    q[:, 3] = 1.0
+    return dict(q=q, t=p.t.new_zeros((n, 3)))
 
 
 def _pad_odometry(p: Problem, width: int) -> dict:
@@ -287,35 +366,37 @@ def shard_problem(problem: Problem, mesh: Mesh) -> ShardedProblem:
     than the band halo F. One host copy of the loop and prior indices."""
     P, F = len(mesh), problem.fanout
     nl, el = split_sizes(problem.n_cap, problem.e_cap, F, P)
+    g_cap = ghost_capacity(problem.n_cap, problem.e_cap, F, P)
     lb = problem.loop_b.cpu().numpy().astype(np.int64)
     la = problem.loop_a.cpu().numpy().astype(np.int64)
     live = problem.loop_mask.cpu().numpy() > 0.5
     pidx = problem.prior_idx.cpu().numpy().astype(np.int64)
-    split = _split_edges(lb, la, live, nl, el, F, P)
+    split = _split_edges(lb, la, live, nl, el, F, P, g_cap)
     src = problem.device
     subs, masks, ends_b, ends_a = [], [], [], []
-    for i, (dev, (ghosts, b, a)) in enumerate(zip(mesh.devices, split)):
+    for i, (dev, (ghosts, n_g, b, a)) in enumerate(zip(mesh.devices, split)):
         lo, hi = i * nl, (i + 1) * nl
-        g = torch.tensor(ghosts, dtype=torch.long, device=src)
+        g = torch.tensor(ghosts[:n_g], dtype=torch.long, device=src)
+        pad = _identity_poses(problem, F + g_cap - n_g)
         if i:
             hq, ht = problem.q[lo - F:lo], problem.t[lo - F:lo]
             hf = problem.free_mask[lo - F:lo]
         else:
-            hq = problem.q.new_zeros((F, 4))
-            hq[:, 3] = 1.0
-            ht = problem.t.new_zeros((F, 3))
+            hq, ht = pad["q"][:F], pad["t"][:F]
             hf = problem.free_mask.new_zeros((F,))
-        n_loc = F + nl + len(ghosts)
+        n_loc = F + nl + g_cap
         odo_halo, odo_ghost = _pad_odometry(problem, F), _pad_odometry(
-            problem, len(ghosts))
+            problem, g_cap)
         owns = (pidx >= lo) & (pidx < hi)
         e = slice(i * el, (i + 1) * el)
         fields = dict(
-            q=torch.cat([hq, problem.q[lo:hi], problem.q[g]]),
-            t=torch.cat([ht, problem.t[lo:hi], problem.t[g]]),
+            q=torch.cat([hq, problem.q[lo:hi], problem.q[g],
+                         pad["q"][F:]]),
+            t=torch.cat([ht, problem.t[lo:hi], problem.t[g], pad["t"][F:]]),
             node_mask=problem.node_mask.new_ones((n_loc,)),
             free_mask=torch.cat([hf, problem.free_mask[lo:hi],
-                                 problem.free_mask[g]]),
+                                 problem.free_mask[g],
+                                 problem.free_mask.new_zeros(g_cap - n_g)]),
             loop_b=torch.tensor(b), loop_a=torch.tensor(a),
             loop_q=problem.loop_q[e], loop_t=problem.loop_t[e],
             loop_w=problem.loop_w[e], loop_mask=problem.loop_mask[e],
@@ -335,11 +416,10 @@ def shard_problem(problem: Problem, mesh: Mesh) -> ShardedProblem:
         masks.append(problem.node_mask[lo:hi].to(dev))
         ends_b.append(problem.loop_b[e].to(dev))
         ends_a.append(problem.loop_a[e].to(dev))
-    layout = Layout(
-        mesh, F, nl, el,
-        tuple(torch.tensor(g, dtype=torch.long, device=d)
-              for (g, _, _), d in zip(split, mesh.devices)),
-        tuple(subs), OwnerSum([g for g, _, _ in split], nl, mesh.devices))
+    ghosts = tuple(torch.tensor(g, dtype=torch.long, device=d)
+                   for (g, _, _, _), d in zip(split, mesh.devices))
+    layout = Layout(mesh, F, nl, el, ghosts, tuple(subs),
+                    OwnerSum(ghosts, nl, mesh.devices))
     return ShardedProblem(mesh, layout, tuple(subs), tuple(masks),
                           tuple(ends_b), tuple(ends_a), problem.prior_idx,
                           problem.prior_mask)

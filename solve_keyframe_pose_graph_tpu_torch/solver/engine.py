@@ -39,18 +39,23 @@ device and P CPU shards for the CPU; too few cards raise at construction.
 As in the reference, the mesh path takes the full problem build, shards it
 (parallel.shard_problem) and writes back from the gathered result.
 
-On a CUDA device (no mesh) each trigger's solve is one launch of the
-composed graphs of its capacity bucket, its LM and CG loops ending on the
-card (ops/graphs.py), as the reference's trigger runs the compiled program
-of its bucket; the escalation rungs, which get the device lock passed,
-launch one LM iteration at a time. warmup() captures them ahead of the
+On a CUDA device, without a mesh or on a mesh whose shards all sit on
+one card, each trigger's solve is one launch of the composed graphs of its
+capacity bucket, its LM and CG loops ending on the card (ops/graphs.py), as
+the reference's trigger runs the compiled program of its bucket; the
+escalation rungs, which get the device lock passed, launch one LM
+iteration at a time. warmup() captures them ahead of the
 stream for the reference's bucket ladder (_warmup_pairs), and, on a thread
 of its own, loads the host fp64 rung (the native LDL^T library, built on demand,
 and scipy) when the config can escalate to it. A trigger whose bucket is
 not warmed captures its own; each trigger's solve_stats row counts the
 captures its solve took (trigger_captures). The escalation ladder's device
-rungs are captured at first use, not warmed. Eager engines (the CPU, a
-mesh) prime one solve at the first bucket. Left out: the bucket cover,
+rungs are captured at first use, not warmed. On a mesh the warmup shards
+each bucket's dummy graph over it, so it captures the mesh's Programs,
+which its triggers replay (the reference's _warm_one builds an unsharded
+problem, whose executable a mesh trigger never dispatches). Eager engines
+(the CPU, a mesh over distinct cards) prime one solve at the first
+bucket. Left out: the bucket cover,
 sticky tile_k and the host rung's per-bucket traces (the port's host rung
 compiles nothing).
 """
@@ -784,8 +789,10 @@ class SolverEngine:
         thread in increasing bucket order, each under the device lock, so
         that a live trigger waits for at most one bucket's capture;
         warmup_join waits for them. Correctness never depends on warmup: a
-        trigger whose bucket is not warmed captures its own. An eager
-        engine (the CPU, a mesh) compiles nothing per bucket: it primes
+        trigger whose bucket is not warmed captures its own. On a mesh
+        whose shards share one card the buckets are the mesh's (each dummy
+        graph sharded over it). An eager engine (the CPU, a mesh over
+        distinct cards) compiles nothing per bucket: it primes
         one solve at the first bucket (on the thread, with background).
         When the config can escalate to the host fp64 rung (adaptive_fp64
         on, fp64_backend not "tpu"), that rung is loaded on a thread of its
@@ -862,8 +869,10 @@ class SolverEngine:
                 self._bg_error = e
 
     def _graphed(self) -> bool:
-        """Whether this engine's solves replay captured graphs."""
-        return self.mesh is None and graphs.on_card(self.device)
+        """Whether this engine's solves replay captured graphs: on a card,
+        without a mesh or on a mesh whose shards all sit on it."""
+        return graphs.serves_devices(
+            self.mesh.devices if self.mesh is not None else (self.device,))
 
     def _warm_one(self, n_cap: int, e_cap: int,
                   stream_ctx=contextlib.nullcontext) -> None:

@@ -107,6 +107,37 @@ class Problem:
             p.loop_rows_by_node = self.loop_rows_by_node
         return p
 
+    # the static-buffer protocol that ops/graphs.py reads (parallel.
+    # ShardedProblem answers it for a mesh): devices, leaves, static_copy,
+    # refresh
+    @property
+    def devices(self) -> tuple:
+        """The device of each shard: this Problem's one."""
+        return (self.device,)
+
+    def leaves(self) -> tuple:
+        """The tensors that a solve reads, in FIELDS order."""
+        return tuple(getattr(self, f) for f in FIELDS)
+
+    def static_copy(self) -> Problem:
+        """A copy with leaves and a loop-row grouping of its own."""
+        p = Problem(**{f: getattr(self, f).clone() for f in FIELDS})
+        p.loop_rows_by_node                     # built, then refreshed
+        return p
+
+    def refresh(self) -> None:
+        """Recompute the loop rows' grouping from the leaves, into the
+        grouping's buffers once built (no host read: ops/graphs.py captures
+        it in its init piece)."""
+        rows = loop_rows_by_node(self.loop_b, self.loop_a, self.loop_mask,
+                                 self.n_cap)
+        cur = self.__dict__.get("loop_rows_by_node")
+        if cur is None:
+            self.loop_rows_by_node = rows
+        else:
+            cur.order.copy_(rows.order)
+            cur.lengths.copy_(rows.lengths)
+
     @functools.cached_property
     def loop_rows_by_node(self) -> LoopRows:
         """The grouping of the loop-edge rows by node for the row scatter of
@@ -143,7 +174,13 @@ class LoopRows(NamedTuple):
 def loop_rows_by_node(loop_b, loop_a, loop_mask, n: int) -> LoopRows:
     """Problem.loop_rows_by_node for loop endpoints on n nodes."""
     live = (loop_mask > 0.5).repeat(2)
-    key = torch.where(live, torch.cat([loop_b, loop_a]).long(), n)
+    return group_rows(torch.where(live, torch.cat([loop_b, loop_a]).long(),
+                                  n), n)
+
+
+def group_rows(key: torch.Tensor, n: int) -> LoopRows:
+    """The LoopRows grouping of rows whose node is key[j] in [0, n], n for
+    a row that no node sums (in row order within a node)."""
     order = torch.argsort(key, stable=True)
     counts = torch.zeros(n + 1, dtype=torch.long, device=key.device)
     counts.scatter_add_(0, key, torch.ones_like(key))

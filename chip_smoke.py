@@ -131,7 +131,9 @@ Phases, one printed line each (or a few):
      escalation lands on the host fp64 rung, applied, at least one trigger
      is served after it, the settle chi^2 is within 1e-4 of its fp64
      re-evaluation; trigger walls, build times at and between bucket
-     doubles, the peak memory;
+     doubles, the peak memory, the trigger captures and the triggers that
+     the bucket cover moved out of their exact bucket (the warmup is the
+     proportional ladder, which leaves buckets out);
  17. bench: `bench_torch.py --reps 5` in a process of its own, as a user
      runs it: it exits 0, its last line parses, its chi^2 is within the
      bar (<= 1.02 x 0.4038), each rep launched K1 318 (one per CG
@@ -150,7 +152,16 @@ Phases, one printed line each (or a few):
      (c) phase 9's stream through SolverEngine, eager and then graphed
      after warmup(5000, 10000, proportional=False): 0 captures on the
      trigger path, the same poses, switches and counts, trigger median
-     and p90 of both; (d) phase 7's mixed rung as (a), K1 and K2 in fp32;
+     and p90 of both; then the bucket cover: the stream graphed after
+     warmup(5000, 2500), the proportional ladder of its sizes (11
+     buckets where the product has 28), each trigger in its exact bucket
+     or the smallest captured one that holds it (read through a wrapper
+     on lm_solve), 0 captures on the trigger path, bit for bit an eager
+     twin given the same warmup call; the warmup's buckets, wall and
+     pools, each covered trigger's solve ms against its exact-box solve
+     in the full-product run and the capture and composition that bucket
+     cost there, trigger median, p90 and max of both runs;
+     (d) phase 7's mixed rung as (a), K1 and K2 in fp32;
      (e) band*coarse and (f) 4-DOF as (a), 3 reps.
 Phase 14 runs after phase 16: in one process each torch.profiler session
 over composed executables after the first misread more of their kernels
@@ -190,6 +201,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -1798,16 +1810,34 @@ CAPACITY_STREAM = dict(nodes=30000, loops=3000, every=1000, inject_at=20000,
                        pace_s=2.0)
 
 
+class Solves(list):
+    """(n_cap, e_cap, ms) of each solve seen; `last`: the last one's
+    (problem, result), the only one kept, so that the peak memory is the
+    stream's own."""
+    last = None
+
+
 @contextlib.contextmanager
 def solves_seen():
-    """Record (problem, result) of every lm_solve that the engine and the
-    escalation ladder call (they look it up on ops.lm at each call)."""
-    seen: list = []
+    """Record every lm_solve that the engine calls on this thread (it looks
+    it up on ops.lm at each call): its trigger solves without async
+    dispatch, not a background escalation's. n_cap and e_cap are the box
+    the solve ran in, read as tests/test_engine.py's bucket-cover test
+    reads them; ms is the wall time to the end of its device work. The
+    wrapper keeps lm_solve's signature, which ops/graphs.py reads."""
+    seen = Solves()
     real = lm_ops.lm_solve
+    owner = threading.get_ident()
 
+    @functools.wraps(real)
     def spy(problem, **kw):
+        t0 = time.perf_counter()
         res = real(problem, **kw)
-        seen.append((problem, res))
+        if threading.get_ident() == owner:
+            torch.cuda.synchronize()
+            seen.append((problem.n_cap, problem.e_cap,
+                         1e3 * (time.perf_counter() - t0)))
+            seen.last = (problem, res)
         return res
 
     lm_ops.lm_solve = spy
@@ -2015,18 +2045,26 @@ def phase_capacity_stream(dev, card: str) -> None:
         raise AssertionError("warmup did not load the host fp64 rung")
     warm_s = time.perf_counter() - w0
     torch.cuda.reset_peak_memory_stats()
-    with counted("capacity-stream"):
+    with counted("capacity-stream"), solves_seen() as seen:
         t0 = time.perf_counter()
         rec = distress_stream(eng, store, g, every, inject_at, pace_s)
         eng.drain()
-        with solves_seen() as seen:           # the settle trigger's solve
-            settled = eng.trigger()
+        streamed = len(seen)
+        settled = eng.trigger()
         eng.drain()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     check_launches("capacity-stream", expected_launches(eng.solve_stats))
 
     rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
+    if len(seen) != len(rows):
+        raise AssertionError(f"{len(seen)} solves for {len(rows)} triggers")
+    # the triggers that the bucket cover moved out of their exact bucket
+    covered = [[r["node_len"], r["edge_len"], list(b[:2])]
+               for r, b in zip(rows, seen)
+               if b[:2] != (_bucket(r["node_len"], caps.initial_nodes),
+                            _bucket(max(r["edge_len"], 1),
+                                    caps.initial_edges))]
     esc = [r for r in eng.solve_stats if r.get("background_escalation")]
     tid = rec["injected"]
     forced = [r for r in rows if r["trigger"] == tid]
@@ -2045,10 +2083,10 @@ def phase_capacity_stream(dev, card: str) -> None:
         raise AssertionError(f"the forced escalation at node_len "
                              f"{forced['node_len']}: {landed}; "
                              f"{after} triggers served after it landed")
-    if not (settled and len(seen) == 1):
+    if not (settled and len(seen) == streamed + 1):
         raise AssertionError(f"settle trigger fired {settled}, "
-                             f"{len(seen)} solves")
-    problem, res = seen[0]
+                             f"{len(seen) - streamed} solves")
+    problem, res = seen.last
     chi2, chi2_64 = float(res.final_cost), fp64_chi2(problem, res)
     if not (math.isfinite(chi2) and abs(chi2_64 - chi2) <= 1e-4 * chi2_64
             and rows[-1]["final_cost"] == chi2):
@@ -2089,6 +2127,9 @@ def phase_capacity_stream(dev, card: str) -> None:
         max_delta_build_ms=float(max(delta)) if delta else None,
         warmup_s=round(warm_s, 3), stream_wall_s=round(wall, 3),
         max_memory_allocated=peak,
+        trigger_captures=sum(r["trigger_captures"] for r in rows),
+        covered_node_len_edge_len_box=json.dumps(covered,
+                                                 separators=(",", ":")),
         launches=json.dumps(PATH_LAUNCHES["capacity-stream"],
                             separators=(",", ":")), card=repr(card))
     say("capacity-stream-escalation", injected_at_node=forced["node_len"] - 1,
@@ -2280,16 +2321,67 @@ def graphed_against_eager(prob, kw: dict, tag: str, card: str,
     return dict(out, result=res)
 
 
+def cover_box(bucket: tuple, warmed: list) -> tuple:
+    """The engine's bucket cover: `bucket` if it is warmed, else the
+    smallest warmed (n_cap, e_cap) that holds it (None if none does)."""
+    if bucket in warmed:
+        return bucket
+    return min((b for b in warmed if b[0] >= bucket[0] and b[1] >= bucket[1]),
+               default=None)
+
+
+def engine_replay(rec, every: int, eng) -> dict:
+    """`rec` replayed through `eng` as the CLI's replay does: its trigger
+    rows, final poses and switches, wall seconds, and each trigger's
+    (n_cap, e_cap, solve ms) (solves_seen)."""
+    store = eng.store
+    with solves_seen() as seen:
+        t0 = time.perf_counter()
+        cli.replay_events(rec, store, eng, Composer(store, eng), every)
+        wall = time.perf_counter() - t0
+    rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
+    if len(seen) != len(rows):
+        raise AssertionError(f"{len(seen)} solves for {len(rows)} triggers")
+    return dict(
+        rows=rows, boxes=list(seen), wall=wall,
+        poses=np.array([np.concatenate(eng.get_node_pose(i))
+                        for i in range(eng.n_opt_variables())]),
+        switches=np.array([eng.get_switch(e)
+                           for e in range(store.edge_len)]))
+
+
+def same_replay(a: dict, b: dict) -> bool:
+    """Two replays' poses, switches, chi^2 and LM / CG counts bit for
+    bit."""
+    def counts(run):
+        return [(r["node_len"], r["edge_len"], r["lm_iterations"],
+                 r["cg_iterations"], r["final_cost"]) for r in run["rows"]]
+    return (counts(a) == counts(b)
+            and np.array_equal(a["poses"], b["poses"])
+            and np.array_equal(a["switches"], b["switches"]))
+
+
+def walls(run: dict) -> dict:
+    ms = [r["trigger_wall_ms"] for r in run["rows"]]
+    return dict(median=round(float(np.median(ms)), 3),
+                p90=round(float(np.percentile(ms, 90)), 3),
+                max=round(float(max(ms)), 3))
+
+
+# phase 18 (c)'s warmup of the full product of buckets (28 at the default
+# capacities)
+FULL_WARMUP = (5000, 10000)
+
+
 def graphs_engine(dev, card: str) -> None:
     """Phase 18 (c): phase 9's stream replayed through SolverEngine, fp32
     at the product defaults without the escalation ladder and with the
     trigger's solve on its own thread (no async dispatch), so that two
     runs can be compared bit for bit: once with every solve eager, once
     graphed after warmup(5000, 10000, proportional=False) (the full
-    product of buckets: the stream's loops arrive in its second half, in
-    buckets that the proportional ladder leaves out); the graphed run
-    takes no capture on the trigger path, and lands on the eager run's
-    poses, switches and counts."""
+    product of buckets, every trigger in its exact bucket); the graphed
+    run takes no capture on the trigger path, and lands on the eager run's
+    poses, switches and counts. Then graphs_engine_cover."""
     with tempfile.TemporaryDirectory(prefix="kpg") as tmp:
         stream = os.path.join(tmp, "stream.json")
         info = make_stream(stream)
@@ -2300,45 +2392,36 @@ def graphs_engine(dev, card: str) -> None:
         cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False),
         stream=dataclasses.replace(cfg.stream, async_dispatch=False))
 
-    def replay(store, eng):
-        t0 = time.perf_counter()
-        cli.replay_events(rec, store, eng, Composer(store, eng), every)
-        wall = time.perf_counter() - t0
-        poses = np.array([np.concatenate(eng.get_node_pose(i))
-                          for i in range(eng.n_opt_variables())])
-        switches = np.array([eng.get_switch(e) for e in range(
-            eng.store.edge_len)])
-        rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
-        return rows, poses, switches, wall
+    def engine():
+        return SolverEngine(
+            store_mod.GraphStore(initial_capacity=rec.node_len), cfg,
+            device=dev)
 
-    store = store_mod.GraphStore(initial_capacity=rec.node_len)
     with lm_ops._eager_solves():
-        rows_e, poses_e, sw_e, wall_e = replay(
-            store, SolverEngine(store, cfg, device=dev))
-    store = store_mod.GraphStore(initial_capacity=rec.node_len)
-    eng = SolverEngine(store, cfg, device=dev)
+        eager = engine_replay(rec, every, engine())
+    eng = engine()
     w0 = time.perf_counter()
-    n_warm = eng.warmup(5000, 10000, proportional=False)
+    n_warm = eng.warmup(*FULL_WARMUP, proportional=False)
     warm_s = time.perf_counter() - w0
     with counted("graphs-engine"):
-        rows, poses, switches, wall = replay(store, eng)
+        full = engine_replay(rec, every, eng)
+    rows = full["rows"]
     check_launches("graphs-engine", expected_launches(rows))
     captures = [r["trigger_captures"] for r in rows]
-    counts = [(r["lm_iterations"], r["cg_iterations"]) for r in rows]
-    counts_e = [(r["lm_iterations"], r["cg_iterations"]) for r in rows_e]
-    if not (len(rows) >= 5 and not any(captures) and counts == counts_e
-            and np.array_equal(poses, poses_e)
-            and np.array_equal(switches, sw_e)
-            and [r["final_cost"] for r in rows]
-            == [r["final_cost"] for r in rows_e]):
+    exact = [(_bucket(r["node_len"], cfg.capacity.initial_nodes),
+              _bucket(max(r["edge_len"], 1), cfg.capacity.initial_edges))
+             for r in rows]
+    if not (len(rows) >= 5 and not any(captures)
+            and same_replay(full, eager)
+            and [b[:2] for b in full["boxes"]] == exact):
         raise AssertionError(
             f"graphed engine: {len(rows)} triggers, captures {captures}, "
-            f"counts {counts} vs eager {counts_e}, poses equal "
-            f"{np.array_equal(poses, poses_e)}, switches equal "
-            f"{np.array_equal(switches, sw_e)}")
+            f"boxes {[b[:2] for b in full['boxes']]} for buckets {exact}, "
+            f"equal to the eager replay {same_replay(full, eager)}")
     ws = eng.warmup_stats
+    full.update(warmup_stats=ws, warm_s=warm_s, exact=exact)
     big = max(ws, key=lambda r: (r["n_cap"], r["e_cap"]))
-    ms, ms_e = ([r["trigger_wall_ms"] for r in x] for x in (rows, rows_e))
+    ms, ms_e = walls(full), walls(eager)
     say("graphs-engine", triggers=len(rows), trigger_captures=sum(captures),
         warmed_buckets=n_warm, warmup_s=round(warm_s, 3),
         capture_s_total=round(sum(r["capture_s"] for r in ws), 3),
@@ -2348,13 +2431,115 @@ def graphs_engine(dev, card: str) -> None:
         largest_bucket=json.dumps({k: (round(v, 4) if isinstance(v, float)
                                        else v) for k, v in big.items()}),
         bit_equal_to_eager=True, final_chi2=rows[-1]["final_cost"],
-        median_trigger_wall_ms=round(float(np.median(ms)), 3),
-        p90_trigger_wall_ms=round(float(np.percentile(ms, 90)), 3),
-        eager_median_trigger_wall_ms=round(float(np.median(ms_e)), 3),
-        eager_p90_trigger_wall_ms=round(float(np.percentile(ms_e, 90)), 3),
-        replay_wall_s=round(wall, 3), eager_replay_wall_s=round(wall_e, 3),
+        median_trigger_wall_ms=ms["median"], p90_trigger_wall_ms=ms["p90"],
+        eager_median_trigger_wall_ms=ms_e["median"],
+        eager_p90_trigger_wall_ms=ms_e["p90"],
+        replay_wall_s=round(full["wall"], 3),
+        eager_replay_wall_s=round(eager["wall"], 3),
         launches=json.dumps(PATH_LAUNCHES["graphs-engine"],
                             separators=(",", ":")), card=repr(card))
+    graphs_engine_cover(rec, every, engine, full, card)
+
+
+# phase 18 (c)'s proportional warmup: the stream's own sizes (make_stream)
+COVER_WARMUP = (5000, 2500)
+
+
+def graphs_engine_cover(rec, every: int, engine, full: dict,
+                        card: str) -> None:
+    """Phase 18 (c), the bucket cover: the same stream on an engine
+    warmed by warmup(5000, 2500), the proportional ladder of the stream's
+    own sizes (the full product's Programs dropped first, so that its
+    buckets are captured afresh). Every trigger solves in its exact
+    bucket or, where the ladder leaves that out, in the smallest captured
+    bucket that holds it, with no capture on the trigger path; bit for
+    bit an eager twin given the same warmup call (the same set, so the
+    same boxes; its warmup finds the Programs cached and captures
+    nothing). Printed beside `full`, the full-product run: the warmup's
+    buckets, wall and pools; each covered trigger's solve ms against the
+    full-product run's solve of it in its exact bucket, and the capture
+    and composition that bucket cost there (the stall that the trigger
+    path takes without a cover); trigger median, p90 and max."""
+    graphs.clear()
+    eng = engine()
+    w0 = time.perf_counter()
+    n_warm = eng.warmup(*COVER_WARMUP)
+    warm_s = time.perf_counter() - w0
+    with counted("graphs-engine-cover"):
+        run = engine_replay(rec, every, eng)
+    rows = run["rows"]
+    check_launches("graphs-engine-cover", expected_launches(rows))
+    ws = eng.warmup_stats
+    warmed = [(r["n_cap"], r["e_cap"]) for r in ws]
+    captures = [r["trigger_captures"] for r in rows]
+    boxes = [b[:2] for b in run["boxes"]]
+    want = [cover_box(b, warmed) for b in full["exact"]]
+    covered = [i for i, (b, e) in enumerate(zip(boxes, full["exact"]))
+               if b != e]
+    twin = engine()
+    with lm_ops._eager_solves():
+        twin_warm = twin.warmup(*COVER_WARMUP)
+        eager = engine_replay(rec, every, twin)
+    sizes = [(r["node_len"], r["edge_len"]) for r in rows]
+    if not (n_warm == twin_warm == len(ws) and all(r["captured"] for r in ws)
+            and sizes == [(r["node_len"], r["edge_len"])
+                          for r in full["rows"]]
+            and not any(captures) and boxes == want and covered
+            and [b[:2] for b in eager["boxes"]] == boxes
+            and twin._warmed_buckets == eng._warmed_buckets
+            and same_replay(run, eager)):
+        raise AssertionError(
+            f"bucket cover: warmed {warmed}, triggers {sizes}, captures "
+            f"{captures}, boxes {boxes} where the cover gives {want}, eager "
+            f"twin's boxes {[b[:2] for b in eager['boxes']]}, equal to it "
+            f"{same_replay(run, eager)}")
+    fws = {(r["n_cap"], r["e_cap"]): r for r in full["warmup_stats"]}
+    stall = {}
+    for i in covered:
+        r = fws[full["exact"][i]]
+        stall[str(full["exact"][i])] = round(
+            1e3 * (r["capture_s"] + r["instantiate_s"]), 3)
+    fw = full["warmup_stats"]
+    ms, ms_f = walls(run), walls(full)
+    say("graphs-engine-cover", route="graphs", triggers=len(rows),
+        trigger_captures=sum(captures), covered_triggers=len(covered),
+        warmed_buckets=n_warm, full_product_buckets=len(fw),
+        warmup_s=round(warm_s, 3), full_product_warmup_s=round(full["warm_s"],
+                                                                3),
+        pool_mb_total=round(sum(r["pool_mb"] for r in ws), 1),
+        full_product_pool_mb_total=round(sum(r["pool_mb"] for r in fw), 1),
+        capture_s_total=round(sum(r["capture_s"] for r in ws), 3),
+        instantiate_s_total=round(sum(r["instantiate_s"] for r in ws), 3),
+        bit_equal_to_eager_twin=True,
+        boxes=json.dumps(boxes, separators=(",", ":")),
+        final_chi2=rows[-1]["final_cost"],
+        full_product_final_chi2=full["rows"][-1]["final_cost"],
+        median_trigger_wall_ms=ms["median"], p90_trigger_wall_ms=ms["p90"],
+        max_trigger_wall_ms=ms["max"],
+        full_product_median_trigger_wall_ms=ms_f["median"],
+        full_product_p90_trigger_wall_ms=ms_f["p90"],
+        full_product_max_trigger_wall_ms=ms_f["max"],
+        replay_wall_s=round(run["wall"], 3),
+        full_product_replay_wall_s=round(full["wall"], 3),
+        launches=json.dumps(PATH_LAUNCHES["graphs-engine-cover"],
+                            separators=(",", ":")), card=repr(card))
+    for i in covered:
+        say("graphs-engine-covered", trigger=rows[i]["trigger"],
+            node_len=rows[i]["node_len"], edge_len=rows[i]["edge_len"],
+            exact_bucket=json.dumps(full["exact"][i]),
+            box=json.dumps(boxes[i]),
+            solve_ms=round(run["boxes"][i][2], 3),
+            exact_box_solve_ms=round(full["boxes"][i][2], 3),
+            lm_iterations=rows[i]["lm_iterations"],
+            cg_iterations=rows[i]["cg_iterations"],
+            exact_box_lm_iterations=full["rows"][i]["lm_iterations"],
+            exact_box_cg_iterations=full["rows"][i]["cg_iterations"],
+            exact_bucket_capture_and_compose_ms=stall[
+                str(full["exact"][i])],
+            trigger_wall_ms=round(rows[i]["trigger_wall_ms"], 3),
+            exact_box_trigger_wall_ms=round(
+                full["rows"][i]["trigger_wall_ms"], 3), card=repr(card))
+    graphs.clear()
 
 
 def phase_graphs(dev, card: str) -> None:

@@ -48,15 +48,42 @@ iteration at a time. warmup() captures them ahead of the
 stream for the reference's bucket ladder (_warmup_pairs), and, on a thread
 of its own, loads the host fp64 rung (the native LDL^T library, built on demand,
 and scipy) when the config can escalate to it. A trigger whose bucket is
-not warmed captures its own; each trigger's solve_stats row counts the
-captures its solve took (trigger_captures). The escalation ladder's device
-rungs are captured at first use, not warmed. On a mesh the warmup shards
-each bucket's dummy graph over it, so it captures the mesh's Programs,
-which its triggers replay (the reference's _warm_one builds an unsharded
-problem, whose executable a mesh trigger never dispatches). Eager engines
-(the CPU, a mesh over distinct cards) prime one solve at the first
-bucket. Left out: the bucket cover,
-sticky tile_k and the host rung's per-bucket traces (the port's host rung
+not warmed captures its own, unless the bucket cover gives it a box: each
+trigger's solve_stats row counts the captures its solve took
+(trigger_captures). The escalation ladder's device rungs are captured at
+first use, not warmed. On a mesh the warmup shards each bucket's dummy
+graph over it, so it captures the mesh's Programs, which its triggers
+replay (the reference's _warm_one builds an unsharded problem, whose
+executable a mesh trigger never dispatches).
+
+The bucket cover, the reference's rule (its engine.py:188-196, 691-700):
+_warmed_buckets holds the (n_cap, e_cap, dtype) buckets that this engine
+has warmed (_warm_one, once the bucket is captured and primed) or
+dispatched a trigger in. A trigger whose exact bucket is not there solves
+in the smallest bucket of the set, by (n_cap, e_cap), of its dtype that
+holds it (n_cap and e_cap both at least its own): the padding is masked,
+so it is the same problem in a larger box, and a graphed engine replays
+that box's Program instead of capturing one on the trigger path. The
+problem is built at the box (a box that changes, grown or shrunk, is a
+full build of the incremental builder, which keys on the caps) and the
+sticky coarse group is the box's n_cap's. p_cap stays the trigger's own,
+and the set's key omits it, as the reference's does: a trigger with more
+than 16 anchored worlds captures its own Program at the box, where the
+reference compiles. The set is read and written under state_lock, so a
+background warmup can add to it while a trigger picks its box (the
+reference sorts it unlocked); with background=True a bucket enters it
+only once captured, so a trigger covers only with captured buckets. The
+escalation ladder repacks as the reference's does: the host rung to the
+live lengths, so its result does not depend on the box; the device fp64
+rung to the 1024-multiples that hold them, capped at the box, so it
+depends on the box only where the box is below those; the mixed rung runs
+at the box. _to_host slices every result to the live lengths. Eager engines (the CPU, a mesh over distinct cards) capture nothing:
+their warmup records the reference's whole ladder in the set, so that both
+packages pick the same box for a trigger, and primes one solve at the
+ladder's first bucket. Such an engine gains nothing from a cover and pays
+for the larger box (an eager CPU solve runs every CG iteration of its cap
+at the box's size), as the reference does on its CPU. Left out: sticky
+tile_k and the host rung's per-bucket traces (the port's host rung
 compiles nothing).
 """
 
@@ -227,6 +254,9 @@ class SolverEngine:
         # sticky structure-aware coarse_group per capacity bucket:
         # n_cap -> (group, edge_len at decision). See _prepare_solve.
         self._coarse_group_by_cap: Dict[int, Tuple[int, int]] = {}
+        # (n_cap, e_cap, dtype) buckets warmed or dispatched in, for the
+        # bucket cover (see the module note); under state_lock
+        self._warmed_buckets: set = set()
         # serializes device work between trigger solves, the async worker
         # and a background escalation's device steps
         self._device_lock = threading.Lock()
@@ -412,7 +442,11 @@ class SolverEngine:
             before = graphs.captures_on_this_thread()
             res = _to_host(lm_ops.lm_solve(problem, **kw), node_len,
                            edge_len)
-            return res, graphs.captures_on_this_thread() - before
+            captures = graphs.captures_on_this_thread() - before
+        with self.state_lock:
+            self._warmed_buckets.add((problem.n_cap, problem.e_cap,
+                                      self.config.solver.dtype))
+        return res, captures
 
     def collect(self) -> bool:
         """Collect an in-flight async solve (waits for it) and write it
@@ -690,8 +724,9 @@ class SolverEngine:
             raise RuntimeError(
                 f"edge capacity ceiling exceeded: {edge_len} > "
                 f"{cap.max_edges} (CapacityConfig.max_edges)")
-        n_cap = _bucket(node_len, cap.initial_nodes)
-        e_cap = _bucket(max(edge_len, 1), cap.initial_edges)
+        n_cap, e_cap = self._cover(_bucket(node_len, cap.initial_nodes),
+                                   _bucket(max(edge_len, 1),
+                                           cap.initial_edges))
         p_cap = _bucket(max(len(prior_idx), 1), 16)
 
         tb = time.perf_counter()
@@ -724,6 +759,19 @@ class SolverEngine:
                     coarse_ops.auto_coarse_group(n_cap, med), edge_len)
             kw["coarse_group"] = self._coarse_group_by_cap[n_cap][0]
         return problem, kw, build
+
+    def _cover(self, n_cap: int, e_cap: int) -> Tuple[int, int]:
+        """The box of a trigger of bucket (n_cap, e_cap): the bucket when
+        it is in _warmed_buckets, else the smallest one there of the
+        config's dtype that holds it, by (n_cap, e_cap), else the bucket
+        (see the module note)."""
+        dtype = self.config.solver.dtype
+        with self.state_lock:
+            if (n_cap, e_cap, dtype) in self._warmed_buckets:
+                return n_cap, e_cap
+            return min(((kn, ke) for kn, ke, kd in self._warmed_buckets
+                        if kd == dtype and kn >= n_cap and ke >= e_cap),
+                       default=(n_cap, e_cap))
 
     def _build(self, node_len, edge_len, node_worlds, prior_idx, prior_q,
                prior_t, prior_w, n_cap, e_cap, p_cap, ea, eb, eq, et, ew,
@@ -789,11 +837,14 @@ class SolverEngine:
         thread in increasing bucket order, each under the device lock, so
         that a live trigger waits for at most one bucket's capture;
         warmup_join waits for them. Correctness never depends on warmup: a
-        trigger whose bucket is not warmed captures its own. On a mesh
-        whose shards share one card the buckets are the mesh's (each dummy
-        graph sharded over it). An eager engine (the CPU, a mesh over
-        distinct cards) compiles nothing per bucket: it primes
-        one solve at the first bucket (on the thread, with background).
+        trigger whose bucket is not warmed solves in the smallest warmed
+        bucket that holds it (the bucket cover, see the module note), or
+        captures its own. On a mesh whose shards share one card the
+        buckets are the mesh's (each dummy graph sharded over it). An
+        eager engine (the CPU, a mesh over distinct cards) compiles
+        nothing per bucket: it records the whole ladder for the cover and
+        primes one solve at the ladder's first bucket (on the thread, with
+        background).
         When the config can escalate to the host fp64 rung (adaptive_fp64
         on, fp64_backend not "tpu"), that rung is loaded on a thread of its
         own meanwhile (the reference's engine.py:911-937), so that the
@@ -805,12 +856,16 @@ class SolverEngine:
                 f"warmup({max_nodes}, {max_edges}) exceeds the capacity "
                 f"ceilings ({cap.max_nodes}, {cap.max_edges})")
         self._start_host_rung_warm()
+        pairs = _warmup_pairs(cap, max_nodes, max_edges, proportional)
         if self._graphed():
-            pairs = _warmup_pairs(cap, max_nodes, max_edges, proportional)
             now = pairs[:1]
         else:
-            pairs = [(cap.initial_nodes, cap.initial_edges)]
-            now = []
+            # nothing to capture: the ladder goes into the set as the
+            # reference's compiled ladder does, and one solve primes
+            with self.state_lock:
+                self._warmed_buckets.update(
+                    (n, e, self.config.solver.dtype) for n, e in pairs)
+            pairs, now = pairs[:1], []
         if not background:
             now = pairs
         for pair in now:
@@ -930,6 +985,7 @@ class SolverEngine:
             row["first_replay_s"] = time.perf_counter() - t0
         with self.state_lock:
             self.warmup_stats.append(row)
+            self._warmed_buckets.add((n_cap, e_cap, cfg.solver.dtype))
 
     def run(self, poll_hz: Optional[float] = None, stop_when=None) -> None:
         """Blocking trigger loop (the reference thread's ros::Rate loop)."""

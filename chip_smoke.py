@@ -162,7 +162,16 @@ Phases, one printed line each (or a few):
      in the full-product run and the capture and composition that bucket
      cost there, trigger median, p90 and max of both runs;
      (d) phase 7's mixed rung as (a), K1 and K2 in fp32;
-     (e) band*coarse and (f) 4-DOF as (a), 3 reps.
+     (e) band*coarse and (f) 4-DOF as (a), 3 reps;
+ 19. stream_rows: `bench_stream_torch.py --only streaming_warm,
+     multiworld,cover --procs 1` in processes of its own, as a user runs
+     it (the engine rows of benchmarks/run_baseline.py and the bucket
+     cover's): it exits 0 with every gate of its rows held (chi^2 within
+     2% of the JAX rows', 0 trigger captures after warmup, launches as the
+     LM and CG counts imply, 3 worlds in 1 set, the cover's boxes as
+     planned), its last line parses, names this card and holds the three
+     rows; their trigger median and p90, chi^2, and the cover's solve ms
+     in (4096, 4096) against (2048, 4096) go on a [stream-rows] line.
 Phase 14 runs after phase 16: in one process each torch.profiler session
 over composed executables after the first misread more of their kernels
 (PERF.md), and phase 15's profiled solve is the one that PERF.md's
@@ -178,7 +187,8 @@ real and is counted, and the checks below set it aside: PATH_WARMUP).
 The device counts each piece's runs, and lm_solve fails unless they are
 what the result's LM and CG counts say; the profiler is a second
 witness: each profiled graphed solve (phases 15 and 18 in this process,
-each a counted run; phase 17's bench in its own) is held to the K1 and
+each a counted run; phase 17's bench in its own; phase 19's harness
+counts its rows in their processes) is held to the K1 and
 K2 launches that the counters counted, the result line's
 `launches_measured` holds what it saw (PROFILED) and
 `profiler_disagrees` where that differed (DISAGREED: printed, not
@@ -322,7 +332,8 @@ def counted(path: str):
         w.launches = 0
     warm = dict(graphs.WARMUP_LAUNCHES)
     yield
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     PATH_LAUNCHES[path] = {k: w.launches for k, w in WRAPPERS.items()}
     PATH_WARMUP[path] = {e: n - warm.get(e, 0)
                          for e, n in graphs.WARMUP_LAUNCHES.items()
@@ -1823,7 +1834,8 @@ def solves_seen():
     it up on ops.lm at each call): its trigger solves without async
     dispatch, not a background escalation's. n_cap and e_cap are the box
     the solve ran in, read as tests/test_engine.py's bucket-cover test
-    reads them; ms is the wall time to the end of its device work. The
+    reads them; ms is the wall time to the end of its device work (the
+    card synchronised, where there is one). The
     wrapper keeps lm_solve's signature, which ops/graphs.py reads."""
     seen = Solves()
     real = lm_ops.lm_solve
@@ -1834,7 +1846,8 @@ def solves_seen():
         t0 = time.perf_counter()
         res = real(problem, **kw)
         if threading.get_ident() == owner:
-            torch.cuda.synchronize()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
             seen.append((problem.n_cap, problem.e_cap,
                          1e3 * (time.perf_counter() - t0)))
             seen.last = (problem, res)
@@ -2182,6 +2195,56 @@ def phase_bench(card: str) -> None:
                              f"{lines[-1]}")
     PATH_LAUNCHES["bench"] = {k: n * BENCH_REPS for k, n in per_rep.items()}
     say("bench", process_wall_s=round(wall, 3), result=lines[-1])
+
+
+# phase 19's rows of bench_stream_torch.py (--only keys) and the rows
+# they give
+STREAM_ROWS = {"streaming_warm": "streaming_2k_400_warm",
+               "multiworld": "multiworld_1500", "cover": "cover_2k_4000"}
+
+
+def phase_stream_rows(card: str) -> None:
+    """Phase 19 (see the module note). The harness's launches go into the
+    kernels line as path "stream-rows": the sum over its processes of what
+    each counted in its row's stream."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench_stream_torch.py"),
+         "--only", ",".join(STREAM_ROWS), "--procs", "1"], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"bench_stream_torch.py exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    rows = res["rows"]
+    name = card.splitlines()[0].partition(",")[0].strip()
+    checks = dict(
+        metric=res["metric"] == "engine_rows", procs=res["procs"] == 1,
+        rows=set(rows) == set(STREAM_ROWS.values()),
+        card=res["card"] == name, gates=res["gates"] > 0,
+        launches=all(res["launches"].values()))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench_stream_torch.py: failed {failed} in "
+                             f"{lines[-1][:3000]}")
+    PATH_LAUNCHES["stream-rows"] = res["launches"]
+    warm, mw = rows["streaming_2k_400_warm"], rows["multiworld_1500"]
+    say("stream-rows", process_wall_s=round(wall, 3), gates=res["gates"],
+        warm_trigger_median_ms=warm["trigger_host_ms_median"]["median"],
+        warm_trigger_p90_ms=warm["trigger_host_ms_p90"]["median"],
+        warm_chi2=warm["final_chi2"]["median"],
+        multiworld_trigger_median_ms=mw["trigger_host_ms_median"]["median"],
+        multiworld_chi2=mw["final_chi2"]["median"],
+        cover_solve_ms_4096_vs_exact=json.dumps(
+            [[c["node_len"], round(c["solve_ms_cover"], 3),
+              round(c["solve_ms_exact"], 3)]
+             for c in rows["cover_2k_4000"]["covered"]],
+            separators=(",", ":")),
+        launches=json.dumps(res["launches"], separators=(",", ":")),
+        card=repr(card))
 
 
 def same_result(a, b) -> bool:
@@ -2572,7 +2635,7 @@ def phase_graphs(dev, card: str) -> None:
 
 PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
           "replay", "serve", "two-grid", "four-dof", "incremental", "mesh",
-          "capacity", "capacity_stream", "bench", "graphs")
+          "capacity", "capacity_stream", "bench", "graphs", "stream_rows")
 
 
 def main(argv=None) -> None:
@@ -2628,6 +2691,8 @@ def main(argv=None) -> None:
         phase_bench(card)
     if run("graphs"):
         phase_graphs(dev, card)
+    if run("stream_rows"):
+        phase_stream_rows(card)
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return

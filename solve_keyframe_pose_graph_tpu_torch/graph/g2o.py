@@ -124,6 +124,35 @@ def load_g2o(path: str) -> G2OGraph:
     )
 
 
+def synthetic_to_g2o(g) -> G2OGraph:
+    """SyntheticGraph -> G2OGraph (for canonicalizing generated instances
+    as .g2o files: every solver that is compared must read the same
+    rounded values).
+
+    Odometry edges carry the VIO relative poses, so integrating them in
+    g2o_to_problem_inputs reproduces the drifted VIO trajectory exactly.
+    A synthetic loop (a, b) observed as b_T_a becomes the g2o edge (b, a)
+    with measurement b_T_a (g2o convention a'_T_b'), which round-trips to
+    the identical LoopEdge. Identity information matrices: the reference's
+    active residual ignores per-edge weight (CeresResidues.h:189-198)."""
+    n = g.n_nodes
+    eq = np.zeros((n - 1, 4)); et = np.zeros((n - 1, 3))
+    for i in range(n - 1):
+        eq[i], et[i] = nse3.pose_relative(g.vio_q[i], g.vio_t[i],
+                                          g.vio_q[i + 1], g.vio_t[i + 1])
+    edges = np.concatenate([
+        np.stack([np.arange(n - 1), np.arange(1, n)], -1),
+        np.asarray(g.loop_pairs)[:, ::-1],
+    ]).astype(np.int64)
+    return G2OGraph(
+        q=np.asarray(g.vio_q), t=np.asarray(g.vio_t), edges=edges,
+        edge_q=np.concatenate([eq, np.asarray(g.loop_q)]),
+        edge_t=np.concatenate([et, np.asarray(g.loop_t)]),
+        edge_info=np.tile(np.eye(6), (len(edges), 1, 1)),
+        is_2d=False,
+    )
+
+
 def save_g2o(path: str, g: G2OGraph) -> None:
     # atomic: a crashed writer must not leave a partial file that later
     # runs silently load as a truncated graph

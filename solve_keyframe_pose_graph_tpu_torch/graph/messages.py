@@ -11,14 +11,15 @@ The reference's wire surface:
                                    NodeDataManager.cpp:763-792)
   * extrinsic nav_msgs/Odometry -> ExtrinsicMsg
 
-JSON serde for socket messages; `apply()` feeds a GraphStore the same way
-the reference's subscriber callbacks do.
+JSON serde for file/socket replay tapes; `apply()` feeds a GraphStore the
+same way the reference's subscriber callbacks do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import json
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -150,3 +151,27 @@ def message_from_json(d: dict) -> Message:
         return ImuPropagateMsg(int(d["t_ns"]), np.asarray(d["q"], np.float64),
                                np.asarray(d["t"], np.float64))
     raise ValueError(f"unknown message kind {kind!r}")
+
+
+def save_tape(path: str, messages: Sequence[Message]) -> None:
+    """Event tape as JSON lines (one message per line, replayable)."""
+    with open(path, "w") as f:
+        for m in messages:
+            f.write(json.dumps(m.to_json()) + "\n")
+
+
+def load_tape(path: str) -> List[Message]:
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(message_from_json(json.loads(line)))
+    return out
+
+
+def replay_tape(messages: Sequence[Message], store) -> None:
+    """Feed messages to a GraphStore in order (the subscriber-callback
+    path, minus ROS)."""
+    for m in messages:
+        m.apply(store)

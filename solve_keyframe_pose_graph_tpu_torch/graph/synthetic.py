@@ -119,3 +119,17 @@ def circle_graph(
         loop_pairs=np.stack([cand_a, cand_b], axis=-1).astype(np.int32),
         loop_q=lq, loop_t=lt, loop_w=loop_w, loop_is_outlier=is_outlier,
     )
+
+
+def ate_rmse(q_est, t_est, q_gt, t_gt, align_first: bool = True):
+    """Absolute trajectory error (RMSE over translations), optionally after
+    aligning the first pose."""
+    if align_first:
+        # T_align = gt0 * est0^-1
+        qi, ti = nse3.pose_inv(q_est[0], t_est[0])
+        qal, tal = nse3.pose_mul(q_gt[0], t_gt[0], qi, ti)
+        t_adj = tal + nse3.quat_rotate(np.tile(qal, (len(t_est), 1)), t_est)
+    else:
+        t_adj = t_est
+    d = t_adj - t_gt
+    return float(np.sqrt(np.mean(np.sum(d * d, axis=-1))))

@@ -11,6 +11,7 @@ device solve, write-back) is machine-readable.
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 from collections import defaultdict
 from typing import Dict
@@ -43,6 +44,9 @@ class PhaseTimer:
             }
             for name in self.totals
         }
+
+    def report_json(self) -> str:
+        return json.dumps(self.snapshot(), indent=2)
 
     def reset(self):
         self.totals.clear()

@@ -19,6 +19,7 @@ from solve_keyframe_pose_graph_tpu.ops import gn as jgn
 from solve_keyframe_pose_graph_tpu.ops import lm as jlm
 from solve_keyframe_pose_graph_tpu.ops import residuals as jres
 from solve_keyframe_pose_graph_tpu.ops import se3 as jse3
+from solve_keyframe_pose_graph_tpu_torch.graph import synthetic as tsynthetic
 from solve_keyframe_pose_graph_tpu_torch.ops import gn as tgn
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as tlm
 from solve_keyframe_pose_graph_tpu_torch.ops import residuals as tres
@@ -166,8 +167,8 @@ def test_four_dof_end_to_end_criterion(four_dof_solves):
     g, _, res = four_dof_solves
     assert float(res.final_cost) < 0.01 * float(res.initial_cost)
     n = g.n_nodes
-    ate_before = jsynthetic.ate_rmse(g.vio_q, g.vio_t, g.gt_q, g.gt_t)
-    ate_after = jsynthetic.ate_rmse(res.q[:n].numpy(), res.t[:n].numpy(),
+    ate_before = tsynthetic.ate_rmse(g.vio_q, g.vio_t, g.gt_q, g.gt_t)
+    ate_after = tsynthetic.ate_rmse(res.q[:n].numpy(), res.t[:n].numpy(),
                                     g.gt_q, g.gt_t)
     assert ate_after < 0.7 * ate_before
 

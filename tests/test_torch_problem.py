@@ -125,6 +125,8 @@ for n in names:
 import chip_smoke                       # its main() is guarded
 import bench_torch                      # so is bench_torch's
 assert bench_torch.metric_name(5000, 10000) == "lm_solve_5k10k_ms"
+import bench_stream_torch               # and bench_stream_torch's
+assert "streaming_2k_400" in bench_stream_torch.ROWS
 assert len(names) >= 25, names
 assert {pkg.__name__ + ".parallel." + m for m in
         ("sharding", "collectives", "sharded_lm", "sharded_pcg")} <= set(names)
@@ -193,8 +195,8 @@ print(len(names))
 
 
 def test_port_imports_no_jax(sphere_g2o, tmp_path):  # noqa: F811
-    """Every module of the port (parallel/* included), chip_smoke.py and
-    bench_torch.py load, and CPU lm_solves (6-DOF with band+coarse and
+    """Every module of the port (parallel/* included), chip_smoke.py,
+    bench_torch.py and bench_stream_torch.py load, and CPU lm_solves (6-DOF with band+coarse and
     band*coarse, 4-DOF, and a 2-shard CPU mesh), the mixed rung (through the device ladder and
     on the mesh), the three dataset generators, two incremental builds and
     a CLI solve run, with jax and the JAX package refused by an import

@@ -27,7 +27,9 @@ issuing thread's CPU time (time.thread_time; it counts a spin-wait at a
 synchronisation as busy, and the time it waited for a CPU or the device
 not), the garbage collections and their time (gc.callbacks; the
 collector stays on, as users run it), the host's time inside the
-executables' launch calls (graphs.LAUNCH_S: one launch a solve) and the
+solve's launch span (ops/graphs.py, utils/timing.py: the copy of the
+problem in and the cap's fill as well as the one launch call of a solve;
+None on the eager path, which launches no executable) and the
 allocator's reserved memory; and, just before the rep, two fixed probes
 of the host's speed:
 a pure-Python loop (ms) and the host's time to issue one tiny CUDA
@@ -94,6 +96,7 @@ from chip_smoke import PRODUCT, QUALITY, WRAPPERS
 from solve_keyframe_pose_graph_tpu_torch.certify import HARNESS_REF
 from solve_keyframe_pose_graph_tpu_torch.ops import graphs
 from solve_keyframe_pose_graph_tpu_torch.ops.lm import lm_solve
+from solve_keyframe_pose_graph_tpu_torch.utils import timing
 
 FP64_AGREEMENT = 1e-3       # chi^2 against its fp64 re-evaluation, relative
 
@@ -247,12 +250,13 @@ def timed_rep(prob, dev, clock: GcClock) -> tuple:
     for w in WRAPPERS.values():
         w.launches = 0
     gc_counts, gc_s = list(clock.counts), clock.seconds
-    replay_s = sum(graphs.LAUNCH_S.values())
+    spans = timing.Record(time.monotonic())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     w0, c0 = time.perf_counter(), time.thread_time()
     start.record()
-    res, chi2 = solve(prob)
+    with timing.recording(spans):
+        res, chi2 = solve(prob)
     end.record()
     end.synchronize()
     wall = (time.perf_counter() - w0) * 1e3
@@ -261,7 +265,7 @@ def timed_rep(prob, dev, clock: GcClock) -> tuple:
                thread_share=cpu / wall,
                gc=[a - b for a, b in zip(clock.counts, gc_counts)],
                gc_ms=(clock.seconds - gc_s) * 1e3,
-               replay_host_ms=(sum(graphs.LAUNCH_S.values()) - replay_s) * 1e3,
+               replay_host_ms=spans.total_ms("launch"),
                reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20,
                **probe, launches={k: w.launches for k, w in WRAPPERS.items()})
     return res, chi2, rec

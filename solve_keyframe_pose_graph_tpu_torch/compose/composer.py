@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,6 +66,9 @@ class Composer:
         self.store = store
         self.engine = engine
         self.latest: Optional[ComposedTrajectory] = None
+        # assemble() calls and their hold of engine.state_lock
+        self.trace = {"assembles": 0, "state_lock_hold_s": 0.0,
+                      "state_lock_hold_max_s": 0.0}
 
     # ------------------------------------------------------------------
     # pose assembly (Composer.cpp:10-263)
@@ -74,7 +78,16 @@ class Composer:
         # engine.state_lock: consistent snapshot of opt poses + watermark
         # while the solver thread writes back (see SolverEngine.state_lock)
         with self.engine.state_lock:
-            return self._assemble_vectorized()
+            t0 = time.monotonic()
+            try:
+                return self._assemble_vectorized()
+            finally:
+                held = time.monotonic() - t0
+                tr = self.trace
+                tr["assembles"] += 1
+                tr["state_lock_hold_s"] += held
+                if held > tr["state_lock_hold_max_s"]:
+                    tr["state_lock_hold_max_s"] = held
 
     def assemble_reference(self) -> Optional[ComposedTrajectory]:
         """Literal per-node transcription of pose_assember_thread

@@ -19,6 +19,11 @@ it returns was written and no write can overflow. Every caller that holds a
 store made here goes through it: the engine, the Composer, the viz sink and
 the store's own world queries (`nodeidx_of_world_i_started`).
 
+A loop edge's arrival stamp (`edge_arrivals`) is read before the C call
+and appended after it, beside its `edge_mask` entry: the core counts the
+edge first, so a reader can see `edge_len` past the stamps, and reads only
+the stamps there are (the engine's edge waits).
+
 Build: `make -C native/` at the repo root, or
 `python -m solve_keyframe_pose_graph_tpu_torch.graph.native` (builds
 in-tree).
@@ -29,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -156,6 +162,7 @@ class NativeGraphStore(GraphStore):
         # python-side leftovers of the base class
         self._e_desc: List[str] = []
         self.edge_mask: List[bool] = []
+        self.edge_arrivals: List[float] = []
         self.worlds = WorldRegistry()
         self.imu_T_cam_q: Optional[np.ndarray] = None
         self.imu_T_cam_t: Optional[np.ndarray] = None
@@ -283,6 +290,7 @@ class NativeGraphStore(GraphStore):
                       description: str = ""):
         q = np.ascontiguousarray(q_b_T_a, np.float64)
         t = np.ascontiguousarray(t_b_T_a, np.float64)
+        arrived = time.monotonic()
         e = int(self._lib.kpg_add_loop_edge(
             self._h, int(t_ns_a), int(t_ns_b), _as_dp(q), _as_dp(t),
             float(weight)))
@@ -292,12 +300,14 @@ class NativeGraphStore(GraphStore):
             return None
         self._e_desc.append(description)
         self.edge_mask.append(True)
+        self.edge_arrivals.append(arrived)
         return e
 
     def add_loop_edge_by_index(self, ia, ib, q_b_T_a, t_b_T_a, weight,
                                description: str = "") -> int:
         q = np.ascontiguousarray(q_b_T_a, np.float64)
         t = np.ascontiguousarray(t_b_T_a, np.float64)
+        arrived = time.monotonic()
         e = int(self._lib.kpg_add_loop_edge_by_index(
             self._h, int(ia), int(ib), _as_dp(q), _as_dp(t), float(weight)))
         if e == -2:
@@ -306,6 +316,7 @@ class NativeGraphStore(GraphStore):
             return None
         self._e_desc.append(description)
         self.edge_mask.append(True)
+        self.edge_arrivals.append(arrived)
         return e
 
     def mark_as_kidnapped(self, t_ns: int) -> None:

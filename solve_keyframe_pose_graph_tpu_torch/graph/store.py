@@ -4,7 +4,9 @@ solve_keyframe_pose_graph_tpu/graph/store.py, the same code)
 
 Owns, append-only and host-side (SoA numpy with capacity doubling):
   * per-keyframe VIO pose (q xyzw, t), timestamp (int ns), 6x6 covariance
-  * loop-closure edges: (idx_a, idx_b), observed b_T_a, weight, description
+  * loop-closure edges: (idx_a, idx_b), observed b_T_a, weight, description,
+    and each edge's arrival on CLOCK_MONOTONIC (edge_arrivals; NaN for an
+    edge loaded from disk), which the engine reads as the edge's wait
   * kidnap intervals + current kidnap status, driving the WorldRegistry
   * imu <-> camera extrinsic
 
@@ -22,6 +24,8 @@ Differences from the reference, by design:
 from __future__ import annotations
 
 import json
+import math
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -53,6 +57,7 @@ class GraphStore:
         self._e_desc: List[str] = []
         self.edge_mask: List[bool] = []            # ablation support
                                                    # (NodeDataManager.h:118)
+        self.edge_arrivals: List[float] = []       # time.monotonic() per edge
 
         self.kidnap_starts: List[int] = []         # ns
         self.kidnap_ends: List[int] = []
@@ -160,6 +165,8 @@ class GraphStore:
         self._e_w[e] = float(weight)
         self._e_desc.append(description)
         self.edge_mask.append(True)
+        # stamped before it is counted: every counted edge has its stamp
+        self.edge_arrivals.append(time.monotonic())
         self._e += 1
         return e
 
@@ -478,6 +485,7 @@ class GraphStore:
             if edge_mask is not None:
                 keep = keep and bool(edge_mask[i])
             g.edge_mask[idx] = bool(keep)
+            g.edge_arrivals[idx] = math.nan        # it never arrived live
 
         # timestamp <-> index consistency check on BOTH endpoints
         # (NodeDataManager.cpp:736-747)

@@ -116,6 +116,7 @@ from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import graph_loops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
+from solve_keyframe_pose_graph_tpu_torch.utils import timing
 
 _cache_lock = threading.Lock()
 _programs: dict = {}           # key -> Program
@@ -126,7 +127,6 @@ LOG: list = []                 # one record per Program built (Program.record)
 WARMUP_LAUNCHES: dict = {}     # C entry point -> warm-up launches
 PIECES = ("init", "pre", "cg_iter", "post")
 LAUNCHES = dict.fromkeys(graph_loops.NAMES, 0)    # executable -> launches
-LAUNCH_S = dict.fromkeys(graph_loops.NAMES, 0.0)  # host seconds in them
 HOST_READS = {"solve": 0, "step": 0}   # host reads by form of solve
 
 
@@ -311,16 +311,16 @@ class Program:
                                  self.caps["lm"]))
 
     def launch(self, name: str) -> None:
-        t0 = time.perf_counter()
         self.loops.launch(name)
-        dt = time.perf_counter() - t0
         with _cache_lock:
             LAUNCHES[name] += 1
-            LAUNCH_S[name] += dt
 
     def read(self, form: str, *values) -> list:
-        """One host read of the 0-d integer or bool tensors `values`."""
-        out = torch.stack([v.to(torch.int64) for v in values]).tolist()
+        """One host read of the 0-d integer or bool tensors `values`: the
+        span result_wait, the host blocked until the card has run what
+        was launched before it."""
+        with timing.span("result_wait"):
+            out = torch.stack([v.to(torch.int64) for v in values]).tolist()
         with _cache_lock:
             HOST_READS[form] += 1
         return out
@@ -496,9 +496,11 @@ def solve(problem, setup: dict, *, max_iterations: int,
     launch of the solve executable and the result cloned out with one host
     read. With it: under the lock the leaves copied in, init launched and
     `k` and `done` read; then each step launch and its read under the lock
-    until the LM loop's cond fails; then the result. A Program whose
-    launch failed is dropped from the cache; a failed coarse factorization
-    (LinAlgError) leaves it there."""
+    until the LM loop's cond fails; then the result. Each launch, with the
+    copy in before it, is the span launch, each host read the span
+    result_wait (utils/timing.py). A Program whose launch failed is dropped
+    from the cache; a failed coarse factorization (LinAlgError) leaves it
+    there."""
     setup = resolved(problem, setup)
     lock = dispatch_lock if dispatch_lock is not None else \
         contextlib.nullcontext()
@@ -507,18 +509,21 @@ def solve(problem, setup: dict, *, max_iterations: int,
     with prog.busy:
         try:
             if dispatch_lock is None:
-                prog.load(problem)
-                prog.caps["lm"].fill_(max_iterations)
-                prog.launch("solve")
+                with timing.span("launch"):
+                    prog.load(problem)
+                    prog.caps["lm"].fill_(max_iterations)
+                    prog.launch("solve")
                 return prog.result("solve")
             st = prog.state
             with lock:
-                prog.load(problem)
-                prog.launch("init")
+                with timing.span("launch"):
+                    prog.load(problem)
+                    prog.launch("init")
                 k, done = prog.read("step", st.k, st.done)
             while not done and k < max_iterations:
                 with lock:
-                    prog.launch("step")
+                    with timing.span("launch"):
+                        prog.launch("step")
                     k, done = prog.read("step", st.k, st.done)
             return prog.result("step")
         except torch.linalg.LinAlgError:

@@ -11,7 +11,9 @@ graph.messages schema. The server runs the full pipeline:
   assembler thread: Composer.assemble() at stream.assembler_hz
 
 Query protocol (client sends a JSON line, server replies one JSON line):
-  {"kind": "query", "what": "status"}      -> pipeline status summary
+  {"kind": "query", "what": "status"}      -> pipeline status summary, with
+                                              the threads' counters under
+                                              "trace" (see _trace)
   {"kind": "query", "what": "trajectory"}  -> corrected trajectory (solved
                                               prefix + extrapolated suffix)
   {"kind": "query", "what": "pose"}        -> newest composed pose
@@ -30,6 +32,7 @@ import json
 import os
 import socketserver
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -60,6 +63,9 @@ class PoseGraphServer:
         self.status = StatusPrinter(store, self.engine, logger=self.logger)
         self._stop = threading.Event()
         self._ingest_lock = threading.Lock()
+        # messages applied to the store, and their waits for _ingest_lock
+        self.ingest_trace = {"messages": 0, "lock_wait_s": 0.0,
+                             "lock_wait_max_s": 0.0}
         if load_dir:
             ok = self.composer.load_state_from_disk(load_dir)
             self.logger.info(f"load_state_from_disk({load_dir}) -> {ok}")
@@ -90,9 +96,31 @@ class PoseGraphServer:
                 "q": list(map(float, q_o)), "t": list(map(float, t_o)),
             })
         msg = msgs.message_from_json(obj)
+        t0 = time.monotonic()
         with self._ingest_lock:   # serialize multi-client appends
+            wait = time.monotonic() - t0
+            tr = self.ingest_trace
+            tr["messages"] += 1
+            tr["lock_wait_s"] += wait
+            if wait > tr["lock_wait_max_s"]:
+                tr["lock_wait_max_s"] = wait
             msg.apply(self.store)
         return None
+
+    def _trace(self) -> dict:
+        """The threads' counters: the ingest threads' messages and
+        _ingest_lock waits, the assembles and their hold of the engine's
+        state_lock (Composer.trace), the solver loop's poll sleeps, and
+        under "phases" the engine's time by phase (PhaseTimer.snapshot:
+        each part of the triggers so far, world_mapping, first_contact,
+        initial_guesses, priors, device_solve with prepare, problem_build
+        and to_host, write_back, the lock waits, collect and async_solve)."""
+        eng = self.engine
+        return {"ingest": dict(self.ingest_trace),
+                "assembler": dict(self.composer.trace),
+                "poll": {"sleeps": eng.poll_sleeps,
+                         "sleep_s": eng.poll_sleep_s},
+                "phases": eng.timer.snapshot()}
 
     def _query(self, obj) -> dict:
         what = obj.get("what", "status")
@@ -107,6 +135,7 @@ class PoseGraphServer:
                 "triggers": self.engine.trigger_id,
                 "last_solve": (self.engine.solve_stats[-1]
                                if self.engine.solve_stats else None),
+                "trace": self._trace(),
             }
         if what == "trajectory":
             # incremental protocol: the client echoes the last reply's

@@ -85,6 +85,20 @@ for the larger box (an eager CPU solve runs every CG iteration of its cap
 at the box's size), as the reference does on its CPU. Left out: sticky
 tile_k and the host rung's per-bucket traces (the port's host rung
 compiles nothing).
+
+Tracing (utils/timing.py): a trigger that fires opens a Record at its
+start, when it reads the store's edge count. Its phases are spans in it,
+on the monotonic clock: world_mapping, first_contact, initial_guesses,
+priors, device_solve (device_lock_wait, prepare with problem_build, and
+on the card the solve's launch and result_wait, to_host), write_back;
+state_lock_wait and device_lock_wait at each acquisition of those locks;
+an async solve's under async_solve on its worker and collect. Its
+solve_stats row gets t_start, t_end, spans_ms, the summed lock_wait_ms,
+launch_ms and result_wait_ms (None where no such span ran), poll_sleep_s
+(run()'s sleeps so far) and its new edges' waits in the store
+(_edge_waits); its trigger_wall_ms runs from that start, so it holds the
+kidnap and world checks and _edge_waits too. The timer's totals of every
+phase are the status query's trace.phases (runtime_server.py).
 """
 
 from __future__ import annotations
@@ -104,8 +118,7 @@ import torch
 from solve_keyframe_pose_graph_tpu_torch.config import Config
 from solve_keyframe_pose_graph_tpu_torch.graph.store import GraphStore
 from solve_keyframe_pose_graph_tpu_torch.graph import synthetic
-from solve_keyframe_pose_graph_tpu_torch.utils import nse3
-from solve_keyframe_pose_graph_tpu_torch.utils.timing import PhaseTimer
+from solve_keyframe_pose_graph_tpu_torch.utils import nse3, timing
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import graphs
@@ -245,7 +258,7 @@ class SolverEngine:
         # first_replay_s, pool_mb (the capture fields None on an eager
         # engine)
         self.warmup_stats: list = []
-        self.timer = PhaseTimer()
+        self.timer = timing.PhaseTimer()
         # worldID -> (old setID, new setID), valid for one trigger
         self._changes_to_setid: Dict[int, Tuple[int, int]] = {}
         # guards the opt variables against concurrent readers (a composer
@@ -261,8 +274,8 @@ class SolverEngine:
         # and a background escalation's device steps
         self._device_lock = threading.Lock()
         # in-flight async solve (stream.async_dispatch): (future, problem,
-        # kw, node_len, edge_len, node_worlds, trigger id, t0); popped under
-        # state_lock by collect()
+        # kw, node_len, edge_len, node_worlds, trigger id, its Record,
+        # row entries); popped under state_lock by collect()
         self._pending = None
         self._executor: Optional[ThreadPoolExecutor] = None
         # in-flight background escalated re-solve; joined by drain()
@@ -327,6 +340,8 @@ class SolverEngine:
         # them, so every edge < edge_len has endpoints < node_len
         edge_len = store.edge_len
         node_len = store.node_len
+        # the trigger's start: every edge it takes in was stamped before
+        t_start = time.monotonic()
         if (edge_len == self.prev_edge_len or store.current_kidnap_status
                 or node_len == 0):
             self.status = 0
@@ -338,11 +353,21 @@ class SolverEngine:
             self.status = 0
             return False
 
+        taken = dict(poll_sleep_s=self.poll_sleep_s,
+                     **self._edge_waits(t_start, edge_len))
+        with timing.recording(timing.Record(t_start)) as rec:
+            return self._fire(rec, node_len, edge_len, taken)
+
+    def _fire(self, rec: timing.Record, node_len: int, edge_len: int,
+              taken: dict) -> bool:
+        """The trigger's solve, once it has new edges to take, its spans
+        going into `rec`; `taken` holds its edge and poll entries of the
+        solve_stats row."""
+        store = self.store
         self.status = 1
         self.trigger_id += 1
         worlds = store.worlds
         timer = self.timer
-        t0 = time.perf_counter()
 
         # ---- 0: allocate new opt variables (identity init; the real guess
         # is set below)
@@ -357,28 +382,31 @@ class SolverEngine:
             node_worlds = store.node_worlds()[:node_len]
 
         # ---- 1/2: new loop edges; inter-world first contact
-        for e in range(self.prev_edge_len, edge_len):
-            a, b = store.edge_idx_info(e)
-            w_a = int(node_worlds[a])
-            w_b = int(node_worlds[b])
-            if w_a < 0 or w_b < 0 or w_a == w_b or worlds.is_exist(w_b, w_a):
-                continue
-            # first contact: wb_T_wa = wb_T_b * b_T_a_obs * (wa_T_a)^-1
-            qa, ta = store.node_pose(a)
-            qb, tb = store.node_pose(b)
-            qe, te = store.edge_pose(e)
-            q_wb_a, t_wb_a = nse3.pose_mul(qb, tb, qe, te)
-            q_inv, t_inv = nse3.pose_inv(qa, ta)
-            q_rel, t_rel = nse3.pose_mul(q_wb_a, t_wb_a, q_inv, t_inv)
-            before = worlds.get_world_to_setid_map()
-            worlds.set_pose_between_worlds(
-                w_b, w_a, q_rel, t_rel,
-                f"this pose computed from edge {a} <--> {b}")
-            after = worlds.get_world_to_setid_map()
-            self._changes_to_setid.clear()
-            for wid, sid_before in before.items():
-                if after[wid] != sid_before:
-                    self._changes_to_setid[wid] = (sid_before, after[wid])
+        with timer.phase("first_contact"):
+            for e in range(self.prev_edge_len, edge_len):
+                a, b = store.edge_idx_info(e)
+                w_a = int(node_worlds[a])
+                w_b = int(node_worlds[b])
+                if (w_a < 0 or w_b < 0 or w_a == w_b
+                        or worlds.is_exist(w_b, w_a)):
+                    continue
+                # first contact: wb_T_wa = wb_T_b * b_T_a_obs * (wa_T_a)^-1
+                qa, ta = store.node_pose(a)
+                qb, tb = store.node_pose(b)
+                qe, te = store.edge_pose(e)
+                q_wb_a, t_wb_a = nse3.pose_mul(qb, tb, qe, te)
+                q_inv, t_inv = nse3.pose_inv(qa, ta)
+                q_rel, t_rel = nse3.pose_mul(q_wb_a, t_wb_a, q_inv, t_inv)
+                before = worlds.get_world_to_setid_map()
+                worlds.set_pose_between_worlds(
+                    w_b, w_a, q_rel, t_rel,
+                    f"this pose computed from edge {a} <--> {b}")
+                after = worlds.get_world_to_setid_map()
+                self._changes_to_setid.clear()
+                for wid, sid_before in before.items():
+                    if after[wid] != sid_before:
+                        self._changes_to_setid[wid] = (sid_before,
+                                                       after[wid])
 
         # ---- 4: initial guesses, 4-case table
         with timer.phase("initial_guesses"):
@@ -390,28 +418,31 @@ class SolverEngine:
         # reference reads the live store here and can index past its
         # arrays (engine.py:343-356).
         prior_idx, prior_q, prior_t, prior_w = [], [], [], []
-        for ww in range(store.n_worlds()):
-            ww_setid = worlds.find_setID_of_world_i(ww)
-            ww_start = store.nodeidx_of_world_i_started(ww)
-            ww_end = min(store.nodeidx_of_world_i_ended(ww), node_len - 1)
-            if not 0 <= ww_start < node_len:
-                continue
-            if ww_setid >= 0 and ww_setid == ww:
-                prior_idx.append(ww_start)
-                prior_q.append(self._opt_q[ww_start].copy())
-                prior_t.append(self._opt_t[ww_start].copy())
-                prior_w.append(max(
-                    1.1, math.log(1 + max(ww_end - ww_start, 0)) / 2.0))
+        with timer.phase("priors"):
+            for ww in range(store.n_worlds()):
+                ww_setid = worlds.find_setID_of_world_i(ww)
+                ww_start = store.nodeidx_of_world_i_started(ww)
+                ww_end = min(store.nodeidx_of_world_i_ended(ww), node_len - 1)
+                if not 0 <= ww_start < node_len:
+                    continue
+                if ww_setid >= 0 and ww_setid == ww:
+                    prior_idx.append(ww_start)
+                    prior_q.append(self._opt_q[ww_start].copy())
+                    prior_t.append(self._opt_t[ww_start].copy())
+                    prior_w.append(max(
+                        1.1, math.log(1 + max(ww_end - ww_start, 0)) / 2.0))
         self._changes_to_setid.clear()
 
         # ---- 6: solve on the device
         self.status = 2
         tid = self.trigger_id
         with timer.phase("device_solve"):
-            with self._device_lock:
+            with self._locked(self._device_lock, "device_lock_wait"), \
+                    timer.phase("prepare"):
                 problem, kw, build = self._prepare_solve(
                     node_len, edge_len, node_worlds, prior_idx, prior_q,
                     prior_t, prior_w)
+            build = dict(build, **taken)
             if self.config.stream.async_dispatch:
                 # the solve and its copy to the host run on the worker; the
                 # host goes back to ingest and compose until the next
@@ -420,33 +451,77 @@ class SolverEngine:
                     self._executor = ThreadPoolExecutor(
                         max_workers=1, thread_name_prefix="kpg-async")
                 fut = self._executor.submit(
-                    self._solve_to_host, problem, kw, node_len, edge_len,
+                    self._solve_async, rec, problem, kw, node_len, edge_len,
                     _on_stream(self.device))
-                with self.state_lock:
+                with self._locked(self.state_lock, "state_lock_wait"):
                     self._pending = (fut, problem, kw, node_len, edge_len,
-                                     node_worlds, tid, t0, build)
+                                     node_worlds, tid, rec, build)
                 self.status = 3
                 return True
             res, captures = self._solve_to_host(problem, kw, node_len,
                                                 edge_len)
         self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, t0, dict(build, trigger_captures=captures))
+                           tid, rec, dict(build, trigger_captures=captures))
         return True
+
+    def _edge_waits(self, t_start: float, edge_len: int) -> dict:
+        """The solve_stats entries of the new loop edges' waits in the
+        store: edge_from (prev_edge_len), and over the new edges that carry
+        an arrival stamp, edges_taken, edge_wait_sum_ms and edge_wait_max_ms
+        (t_start less the stamp). A store may count an edge before its
+        stamp lands (graph/native.py), and an edge loaded from disk has
+        none: both are left out."""
+        lo = self.prev_edge_len
+        stamps = self.store.edge_arrivals
+        at = np.asarray(stamps[lo:min(edge_len, len(stamps))], np.float64)
+        waits = 1000.0 * (t_start - at[~np.isnan(at)])
+        return dict(edge_from=lo, edges_taken=len(waits),
+                    edge_wait_sum_ms=float(waits.sum()),
+                    edge_wait_max_ms=float(waits.max()) if len(waits)
+                    else None)
+
+    @contextlib.contextmanager
+    def _locked(self, lock, name: str):
+        """Hold `lock`, its acquisition timed as the phase `name`."""
+        with self.timer.phase(name):
+            lock.acquire()
+        try:
+            yield
+        finally:
+            lock.release()
+
+    @property
+    def poll_sleeps(self) -> int:
+        """The sleeps of run()'s poll so far."""
+        return self.timer.counts.get("poll_sleep", 0)
+
+    @property
+    def poll_sleep_s(self) -> float:
+        """The seconds run()'s poll has slept so far."""
+        return self.timer.totals.get("poll_sleep", 0.0)
 
     def _solve_to_host(self, problem: Problem, kw: dict, node_len: int,
                        edge_len: int, stream_ctx=contextlib.nullcontext
                        ) -> tuple[lm_ops.LMResult, int]:
         """The solve's host result, and the graph captures it took (a
         bucket that warmup() had not captured)."""
-        with stream_ctx(), self._device_lock:
+        with stream_ctx(), self._locked(self._device_lock,
+                                        "device_lock_wait"):
             before = graphs.captures_on_this_thread()
-            res = _to_host(lm_ops.lm_solve(problem, **kw), node_len,
-                           edge_len)
+            res = lm_ops.lm_solve(problem, **kw)
+            with self.timer.phase("to_host"):
+                res = _to_host(res, node_len, edge_len)
             captures = graphs.captures_on_this_thread() - before
-        with self.state_lock:
+        with self._locked(self.state_lock, "state_lock_wait"):
             self._warmed_buckets.add((problem.n_cap, problem.e_cap,
                                       self.config.solver.dtype))
         return res, captures
+
+    def _solve_async(self, rec: timing.Record, *args) -> tuple:
+        """_solve_to_host on the async worker, its spans going into the
+        dispatching trigger's Record under async_solve."""
+        with timing.recording(rec), self.timer.phase("async_solve"):
+            return self._solve_to_host(*args)
 
     def collect(self) -> bool:
         """Collect an in-flight async solve (waits for it) and write it
@@ -458,11 +533,14 @@ class SolverEngine:
             pending, self._pending = self._pending, None
         if pending is None:
             return False
-        (fut, problem, kw, node_len, edge_len, node_worlds, tid, t0,
+        (fut, problem, kw, node_len, edge_len, node_worlds, tid, rec,
          build) = pending
-        res, captures = fut.result()
-        self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, t0, dict(build, trigger_captures=captures))
+        with timing.recording(rec):
+            with self.timer.phase("collect"):
+                res, captures = fut.result()
+            self._finish_solve(res, problem, kw, node_len, edge_len,
+                               node_worlds, tid, rec,
+                               dict(build, trigger_captures=captures))
         return True
 
     def drain(self) -> bool:
@@ -487,12 +565,13 @@ class SolverEngine:
             raise err
 
     def _finish_solve(self, res: lm_ops.LMResult, problem: Problem, kw: dict,
-                      node_len, edge_len, node_worlds, tid, t0,
-                      build: dict) -> None:
+                      node_len, edge_len, node_worlds, tid,
+                      rec: timing.Record, build: dict) -> None:
         """Escalate a distressed result if the config says so, then write
-        back. `res` is a host result (_to_host); `build` the problem build's
-        entries of the trigger's solve_stats row, to which an inline
-        escalation adds its rung_stats."""
+        back. `res` is a host result (_to_host); `rec` the trigger's spans;
+        `build` the problem build's, edge and poll entries of the trigger's
+        solve_stats row, to which an inline escalation adds its
+        rung_stats."""
         escalated = False
         solver = self.config.solver
         if (solver.adaptive_fp64 and solver.dtype != "float64"
@@ -514,9 +593,11 @@ class SolverEngine:
         # the stats append and the poses change together under state_lock:
         # the stats length is part of the Composer's version stamp
         self.last_result = res
-        with self.timer.phase("write_back"), self.state_lock:
-            self._write_back(res, node_len, edge_len, node_worlds)
-            self.solved_until = node_len - 1
+        with self._locked(self.state_lock, "state_lock_wait"):
+            with self.timer.phase("write_back"):
+                self._write_back(res, node_len, edge_len, node_worlds)
+                self.solved_until = node_len - 1
+            t_end = time.monotonic()
             self.solve_stats.append({
                 "trigger": tid,
                 "node_len": node_len,
@@ -528,15 +609,20 @@ class SolverEngine:
                 "cg_iterations": int(res.total_cg_iterations),
                 "distress_rejects": int(res.distress_rejects),
                 "fp64_escalated": escalated,
-                "trigger_wall_ms": 1000.0 * (time.perf_counter() - t0),
+                "trigger_wall_ms": 1000.0 * (t_end - rec.t_start),
                 **build,
+                "t_start": rec.t_start, "t_end": t_end,
+                "spans_ms": rec.spans_ms(),
+                "lock_wait_ms": rec.total_ms("state_lock_wait",
+                                             "device_lock_wait"),
+                "launch_ms": rec.total_ms("launch"),
+                "result_wait_ms": rec.total_ms("result_wait"),
             })
         if bool(res.converged):
             self.n_solve_convergences += 1
         self.prev_edge_len = edge_len
         self.prev_node_len = node_len
-        self.timer.totals["trigger_total"] += time.perf_counter() - t0
-        self.timer.counts["trigger_total"] += 1
+        self.timer.add("trigger_total", time.monotonic() - rec.t_start)
         self.status = 0
 
     def _write_back(self, res: lm_ops.LMResult, node_len, edge_len,
@@ -613,8 +699,7 @@ class SolverEngine:
                 "escalation_wall_ms": wall_ms,
                 "rung_stats": rung_stats,
             })
-        self.timer.totals["fp64_escalation"] += wall_ms / 1000.0
-        self.timer.counts["fp64_escalation"] += 1
+        self.timer.add("fp64_escalation", wall_ms / 1000.0)
 
     def _set_initial_guesses(self, node_len: int, node_worlds: np.ndarray
                              ) -> None:
@@ -658,7 +743,7 @@ class SolverEngine:
         opt_q = self._opt_q[:node_len]
         opt_t = self._opt_t[:node_len]
 
-        with self.state_lock:
+        with self._locked(self.state_lock, "state_lock_wait"):
             # case 1: solved nodes of a world whose setID changed -> re-base
             c1 = valid & before & in_change
             if c1.any():
@@ -766,7 +851,7 @@ class SolverEngine:
         config's dtype that holds it, by (n_cap, e_cap), else the bucket
         (see the module note)."""
         dtype = self.config.solver.dtype
-        with self.state_lock:
+        with self._locked(self.state_lock, "state_lock_wait"):
             if (n_cap, e_cap, dtype) in self._warmed_buckets:
                 return n_cap, e_cap
             return min(((kn, ke) for kn, ke, kd in self._warmed_buckets
@@ -988,10 +1073,13 @@ class SolverEngine:
             self._warmed_buckets.add((n_cap, e_cap, cfg.solver.dtype))
 
     def run(self, poll_hz: Optional[float] = None, stop_when=None) -> None:
-        """Blocking trigger loop (the reference thread's ros::Rate loop)."""
+        """Blocking trigger loop (the reference thread's ros::Rate loop).
+        Each sleep of the poll is the phase poll_sleep (poll_sleeps,
+        poll_sleep_s)."""
         period = 1.0 / (poll_hz or self.config.stream.trigger_poll_hz)
         while True:
             if stop_when is not None and stop_when():
                 return
             if not self.trigger():
-                time.sleep(period)
+                with self.timer.phase("poll_sleep"):
+                    time.sleep(period)

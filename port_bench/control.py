@@ -35,11 +35,12 @@ KEYS = ("chi2_gap", "start_gap", "pose_gap_m", "switch_flips", "chi2", "chi2_ref
         "first")
 
 
-def readings(cfg: dict, rec: dict) -> dict:
+def readings(cfg: dict, rec: dict, root: str = ROOT) -> dict:
     out = {"seed": rec["seed"], "program": [], "tf32": []}
+    ref_mod = check.reference(cfg, root)
     for a in check.judged(cfg, rec):
         for name, precision in (("program", "fp64"), ("tf32", "tf32")):
-            nums = check.step(cfg, rec["graph"], a, precision)
+            nums = check.step(cfg, ref_mod, rec["graph"], a, precision)
             out[name].append({k: nums[k] for k in KEYS})
     return out
 
@@ -57,7 +58,7 @@ def main(argv=None, *, device: str = "cuda", root: str = ROOT) -> int:
         rec = stream.run(args.workload, seed, args.seconds, False,
                          t_start=time.monotonic(), device=device,
                          bench=bench, root=root)
-        r = readings(cfg, rec)
+        r = readings(cfg, rec, root)
         r["limits"] = cfg["limits"]
         print(json.dumps(r), flush=True)
     return 0

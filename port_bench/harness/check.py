@@ -9,22 +9,43 @@ engine's last_result); where the trigger's fp32 solve showed distress and
 the engine re-solved it up the escalation ladder in the background, the
 re-solve's, which the engine writes back in its place.
 
-The plain reference (port_bench/reference/posegraph.py) works out the
-trigger's graph from the generated stream itself: the first node_len
-keyframes and the first edge_len loop edges in stream order, the odometry
-from the VIO poses, the prior's weight. It works out the trigger's start
-itself too (posegraph.start): for the first solve, the VIO poses and the
-initial switches; for a later one, the result that the solve before it
-wrote back, each newer node chained by odometry from the newest solved
-one, each newer edge at the initial switch. That previous result is the
-one thing it takes from the program: where the stream's earlier solves
-left the trajectory, which it could only follow step by step. From that
-start it runs the configuration's Levenberg-Marquardt with exact steps in
-float64. So the comparison covers the trigger's initial guesses for new
-nodes and switches, its prior, the problem build, the captured LM with
-PCG, the preconditioner, K1 and K2, and the write-back; it does not cover
-the world mapping of kidnapped sessions, which a one-world stream never
-exercises. Both answers are evaluated by the reference's float64 cost.
+The plain reference is the Python file that the configuration's
+reference.file names, relative to the checkout's root. It imports nothing
+of the program. check.py asks it, for each judged answer, through four
+functions, where `g` is the run's graph (generators.Graph: its stream, its
+events and which loop edges it counts) and `answer` the judged answer
+(node_len, edge_len, first, and prev: (q, t, s) that the solve before it
+wrote back, None for the session's first):
+
+  trigger_start(cfg, g, answer) -> (q, t, s)
+      the state the answer's trigger starts from, worked out by the
+      reference;
+  trigger_problem(cfg, g, n, e, start, precision) -> problem
+      the trigger's problem over the stream's first n keyframes and first
+      e loop edges, anchored as the start says; precision "fp64", or
+      "tf32" for the control (every input rounded to TF32);
+  trigger_solve(cfg, problem, start, precision) -> solution
+      the configuration's solve from the start; the solution has q, t, s,
+      cost and iterations;
+  cost(problem, q, t, s) -> float
+      the problem's cost at a state, in float64.
+
+reference/posegraph.py serves one world: it works out the trigger's graph
+from the generated stream itself (the first node_len keyframes and the
+first edge_len loop edges in stream order, the odometry from the VIO
+poses, the prior's weight) and the trigger's start (posegraph.start): for
+the first solve, the VIO poses and the initial switches; for a later one,
+the result that the solve before it wrote back, each newer node chained by
+odometry from the newest solved one, each newer edge at the initial
+switch. That previous result is the one thing it takes from the program:
+where the stream's earlier solves left the trajectory, which it could only
+follow step by step. From that start it runs the configuration's
+Levenberg-Marquardt with exact steps in float64. So the comparison covers
+the trigger's initial guesses for new nodes and switches, its prior, the
+problem build, the captured LM with PCG, the preconditioner, K1 and K2,
+and the write-back; it does not cover the world mapping of kidnapped
+sessions, which it refuses (a graph with events). Both answers are
+evaluated by the reference's float64 cost.
 
 Numbers compared, each against its limit in the configuration's file:
   chi2_gap      the largest, over the judged answers of the window, of
@@ -44,39 +65,21 @@ Numbers printed beside them, not compared (PERF.md says why):
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 
-from port_bench.harness import generators
-from port_bench.reference import posegraph
+from port_bench.harness import manifest
 
 
-def reference_problem(cfg: dict, g, n: int, e: int, prior=None,
-                      precision: str = "fp64") -> posegraph.Problem:
-    fml = cfg["formulation"]
-    order = generators.stream_order(g)[:e]
-    return posegraph.build_problem(
-        g.vio_q[:n], g.vio_t[:n], g.loop_pairs[order, 0],
-        g.loop_pairs[order, 1], g.loop_q[order], g.loop_t[order],
-        fanout=fml["fanout"], decay=fml["decay"],
-        yaw_sigma2=fml["yaw_sigma2"], prior=prior,
-        rounding=posegraph.ROUNDING[precision])
+def reference(cfg: dict, root: str = manifest.ROOT):
+    """The configuration's reference module, from its reference.file."""
+    return manifest.module(os.path.join(root, cfg["reference"]["file"]))
 
 
-def reference_solve(cfg: dict, p: posegraph.Problem, q0, t0, s0,
-                    precision: str = "fp64") -> posegraph.Solution:
-    lm = cfg["formulation"]["lm"]
-    return posegraph.solve(
-        p, q0, t0, s0, max_iterations=lm["max_iterations"],
-        function_tolerance=lm["function_tolerance"],
-        parameter_tolerance=lm["parameter_tolerance"],
-        initial_radius=lm["initial_radius"], precision=precision)
-
-
-def numbers(p: posegraph.Problem, ref: posegraph.Solution, q, t, s,
-            start_cost: float) -> dict:
-    c = posegraph.cost(p, q, t, s)
+def numbers(ref_mod, p, ref, q, t, s, start_cost: float) -> dict:
+    c = ref_mod.cost(p, q, t, s)
     return {
         "chi2_gap": c / ref.cost - 1.0,
         "start_gap": (c - ref.cost) / start_cost,
@@ -88,25 +91,24 @@ def numbers(p: posegraph.Problem, ref: posegraph.Solution, q, t, s,
     }
 
 
-def step(cfg: dict, g, answer: dict, precision: str = "fp64") -> dict:
+def step(cfg: dict, ref_mod, g, answer: dict,
+         precision: str = "fp64") -> dict:
     """The reference's solve from the start it works out for the answer's
-    trigger (in `precision`), and the numbers of the program's answer
-    against it; with precision "tf32", those of the reference's own TF32
-    answer against the float64 one (the control)."""
+    trigger, and the numbers of the program's answer against it; with
+    precision "tf32", those of the reference's own TF32 answer from the
+    same start against the float64 one (the control)."""
     n, e = answer["node_len"], answer["edge_len"]
-    q0, t0, s0 = posegraph.start(g.vio_q, g.vio_t, n, e, answer["prev"],
-                                 cfg["formulation"]["switch_init"])
-    prior = (q0[0], t0[0])
+    start = ref_mod.trigger_start(cfg, g, answer)
     t = time.monotonic()
-    p = reference_problem(cfg, g, n, e, prior)
-    start_cost = posegraph.cost(p, q0, t0, s0)
-    ref = reference_solve(cfg, p, q0, t0, s0)
+    p = ref_mod.trigger_problem(cfg, g, n, e, start, "fp64")
+    start_cost = ref_mod.cost(p, *start)
+    ref = ref_mod.trigger_solve(cfg, p, start, "fp64")
     if precision == "fp64":
-        out = numbers(p, ref, *answer["res"], start_cost)
+        out = numbers(ref_mod, p, ref, *answer["res"], start_cost)
     else:
-        p_low = reference_problem(cfg, g, n, e, prior, precision)
-        low = reference_solve(cfg, p_low, q0, t0, s0, precision)
-        out = numbers(p, ref, low.q, low.t, low.s, start_cost)
+        p_low = ref_mod.trigger_problem(cfg, g, n, e, start, precision)
+        low = ref_mod.trigger_solve(cfg, p_low, start, precision)
+        out = numbers(ref_mod, p, ref, low.q, low.t, low.s, start_cost)
     out.update(node_len=n, edge_len=e, first=answer["first"],
                reference_s=time.monotonic() - t, start_chi2=start_cost)
     return out
@@ -118,9 +120,10 @@ def judged(cfg: dict, rec: dict) -> list:
     return [a for a in rec["answers"] if first or not a["first"]]
 
 
-def compare(cfg: dict, rec: dict) -> dict:
-    """The judged answers' numbers, each number the largest over them."""
-    per = [dict(step(cfg, rec["graph"], a), escalated=a["escalated"])
+def compare(cfg: dict, rec: dict, ref_mod) -> dict:
+    """The judged answers' numbers, each number the largest over them, by
+    the configuration's reference module (reference(cfg, root))."""
+    per = [dict(step(cfg, ref_mod, rec["graph"], a), escalated=a["escalated"])
            for a in judged(cfg, rec)]
     out = {"answers": len(per), "per_answer": per}
     later = [x for x in per if not x["first"]]

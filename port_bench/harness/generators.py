@@ -1,20 +1,42 @@
-"""Graph generators, by the name that a configuration file gives.
+"""The graph of a run, and its generators by the name that a
+configuration file gives.
 
-`circle_graph` is a frozen copy of the program's synthetic circle graph:
-the same draws from the same seed, so the same graph. A planar circle of
-two laps with tangent heading, odometry with drift integrated into the VIO
-trajectory, and loop edges between node a of the second lap and node
-a - n/2 of the first, a share of them gross outliers. The benchmark keeps
-its own copy so that a change to the program cannot move the yardstick.
+A configuration's "graph": {"generator": name, "args": {...}} names the
+file port_bench/generators/<name>.py, which exposes one function,
+generate(seed, **args) -> Graph: the same graph for the same seed. Beside
+its keyframes and loop edges a Graph may carry events: wire messages of
+the program's schema other than nodes and loop edges (its
+graph/messages.py: a kidnap_indicator, say), each placed before or after a
+node (Event).
+
+The harness, not the generator, works out from the kidnap indicators
+among them which loop edges the formulation counts (Graph.loop_counted):
+an edge with an endpoint in a kidnap's dead zone, after a "kidnapped" and
+before the next "unkidnapped", is sent and stored but left out of the
+solve by design (the program masks an edge with an endpoint at a negative
+world), so it is not due and no trajectory is waited for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
-from port_bench.harness import nse3
+from port_bench.harness import manifest, nse3
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """A wire message placed in the stream at node `node`: after it and
+    its loop edges, or before it. Its stamp, t_ns, is 1 ns after or before
+    the node's: a kidnap placed after node i leaves node i in the old
+    world, an unkidnap placed before node j puts node j in the new one.
+    `message` is the message's JSON without its stamp."""
+    node: int
+    after: bool
+    message: dict
 
 
 @dataclasses.dataclass
@@ -28,6 +50,7 @@ class Graph:
     loop_t: np.ndarray          # (E, 3)
     loop_w: np.ndarray          # (E,)
     loop_is_outlier: np.ndarray  # (E,) bool
+    events: list = dataclasses.field(default_factory=list)   # [Event]
 
     @property
     def n_nodes(self) -> int:
@@ -37,96 +60,54 @@ class Graph:
     def n_loops(self) -> int:
         return len(self.loop_pairs)
 
+    def events_at(self, i: int, after: bool) -> list:
+        """The events placed after (or before) node i, in the graph's
+        order."""
+        return [e for e in self.events if e.node == i and e.after == after]
 
-def _integrate(rel_q, rel_t, q0, t0):
-    n = len(rel_q) + 1
-    q = np.zeros((n, 4))
-    t = np.zeros((n, 3))
-    q[0], t[0] = q0, t0
-    for i in range(1, n):
-        q[i], t[i] = nse3.pose_mul(q[i - 1], t[i - 1], rel_q[i - 1],
-                                   rel_t[i - 1])
-        q[i] /= np.linalg.norm(q[i])
-    return q, t
+    def kidnapped(self) -> np.ndarray:
+        """(N, 2) bool: whether the stream is kidnapped as node i is added,
+        after the events placed before it ([:, 0]: node i lies in a dead
+        zone), and once the events placed after it are in ([:, 1])."""
+        s = np.zeros(2 * self.n_nodes, bool)
+        for e in sorted(self.events, key=lambda e: (e.node, e.after)):
+            if e.message.get("kind") != "kidnap_indicator":
+                continue
+            pos, now = 2 * e.node + int(e.after), e.message["frame_id"]
+            if (now == "kidnapped") == bool(s[pos]):
+                raise ValueError(f"a {now!r} indicator at node {e.node} "
+                                 f"repeats the stream's state")
+            s[pos:] = now == "kidnapped"
+        return s.reshape(-1, 2)
 
-
-def circle_graph(n_nodes: int, n_loops: int, *, seed: int,
-                 radius: float = 20.0, odo_rot_noise: float = 0.002,
-                 odo_trans_noise: float = 0.01,
-                 loop_rot_noise: float = 0.001,
-                 loop_trans_noise: float = 0.005,
-                 outlier_fraction: float = 0.2) -> Graph:
-    rng = np.random.default_rng(seed)
-
-    theta = np.linspace(0, 4 * np.pi, n_nodes, endpoint=False)
-    gt_t = np.stack([radius * np.cos(theta), radius * np.sin(theta),
-                     np.zeros_like(theta)], axis=-1)
-    half = np.radians(np.degrees(theta + np.pi / 2)) / 2
-    gt_q = np.stack([np.zeros_like(half), np.zeros_like(half), np.sin(half),
-                     np.cos(half)], axis=-1)
-
-    rel_q, rel_t = nse3.pose_relative(gt_q[:-1], gt_t[:-1], gt_q[1:],
-                                      gt_t[1:])
-    ang = rng.normal(scale=odo_rot_noise, size=(n_nodes - 1, 3))
-    half_a = np.linalg.norm(ang, axis=-1, keepdims=True) / 2
-    axis = np.where(half_a > 0, ang / np.maximum(2 * half_a, 1e-300), 0.0)
-    nq = np.concatenate([axis * np.sin(half_a), np.cos(half_a)], axis=-1)
-    rel_q_noisy = nse3.quat_mul(rel_q, nq)
-    rel_t_noisy = rel_t + rng.normal(scale=odo_trans_noise, size=rel_t.shape)
-    vio_q, vio_t = _integrate(rel_q_noisy, rel_t_noisy, gt_q[0], gt_t[0])
-
-    half_n = n_nodes // 2
-    cand_a = rng.integers(half_n, n_nodes, size=n_loops)
-    cand_b = cand_a - half_n
-    is_outlier = rng.uniform(size=n_loops) < outlier_fraction
-    lq = np.zeros((n_loops, 4))
-    lt = np.zeros((n_loops, 3))
-    # the draws in the program's order, edge by edge; the arithmetic on
-    # them, the same term for term, over all edges at once
-    bq, bt = nse3.pose_relative(gt_q[cand_b], gt_t[cand_b], gt_q[cand_a],
-                                gt_t[cand_a])
-    nq1 = np.zeros((n_loops, 4))
-    for e in range(n_loops):
-        if is_outlier[e]:
-            rq = rng.normal(size=4)
-            rq /= np.linalg.norm(rq)
-            lq[e], lt[e] = rq, rng.uniform(-10, 10, size=3)
-        else:
-            na = rng.normal(scale=loop_rot_noise, size=3)
-            h = np.linalg.norm(na) / 2
-            ax = na / max(2 * h, 1e-300)
-            nq1[e] = np.concatenate([ax * np.sin(h), [np.cos(h)]])
-            lt[e] = rng.normal(scale=loop_trans_noise, size=3)
-    inl = ~is_outlier
-    lq[inl] = nse3.quat_mul(bq[inl], nq1[inl])
-    lt[inl] += bt[inl]
-    loop_w = rng.uniform(0.5, 1.0, size=n_loops)
-
-    return Graph(gt_q=gt_q, gt_t=gt_t, vio_q=vio_q, vio_t=vio_t,
-                 loop_pairs=np.stack([cand_a, cand_b], -1).astype(np.int32),
-                 loop_q=lq, loop_t=lt, loop_w=loop_w,
-                 loop_is_outlier=is_outlier)
+    @property
+    def loop_counted(self) -> np.ndarray:
+        """(E,) bool: the loop edges with neither endpoint in a dead
+        zone."""
+        dead = self.kidnapped()[:, 0]
+        return ~(dead[self.loop_pairs[:, 0]] | dead[self.loop_pairs[:, 1]])
 
 
-GENERATORS = {"circle_graph": circle_graph}
+def generate(spec: dict, seed: int, base: str = manifest.BENCH_DIR) -> Graph:
+    """The graph of a configuration's "graph" entry drawn from `seed`, by
+    the generator file that it names under `base`."""
+    path = os.path.join(base, "generators", spec["generator"] + ".py")
+    return manifest.module(path).generate(seed, **spec["args"])
 
 
-def generate(spec: dict, seed: int) -> Graph:
-    """The graph of a configuration's "graph" entry: {"generator": name,
-    "args": {...}} drawn from `seed`."""
-    return GENERATORS[spec["generator"]](**spec["args"], seed=seed)
-
-
-def session(spec: dict, session_seed: int, seed: int, first: int) -> Graph:
+def session(spec: dict, session_seed: int, seed: int, first: int,
+            base: str = manifest.BENCH_DIR) -> Graph:
     """The graph of one run: the session a robot already has, the same in
     every run, followed by the run's own traffic. Nodes before `first`
     and the loop edges whose later endpoint is one of them come from the
     graph drawn from `session_seed`; later nodes and their loop edges from
     the graph drawn from `seed`, its VIO chained on from the session's
     node first - 1 by the seed's own odometry. Both graphs share the
-    ground truth, so every loop edge observes the same trajectory."""
-    a = generate(spec, session_seed)
-    b = generate(spec, seed)
+    ground truth, so every loop edge observes the same trajectory. Events
+    at nodes before `first` come from the session's graph, the others from
+    the seed's."""
+    a = generate(spec, session_seed, base)
+    b = generate(spec, seed, base)
     q, t = a.vio_q.copy(), a.vio_t.copy()
     rq, rt = nse3.pose_relative(b.vio_q[first - 1], b.vio_t[first - 1],
                                 b.vio_q[first:], b.vio_t[first:])
@@ -144,7 +125,9 @@ def session(spec: dict, session_seed: int, seed: int, first: int) -> Graph:
     return Graph(gt_q=a.gt_q, gt_t=a.gt_t, vio_q=q, vio_t=t,
                  loop_pairs=loops("loop_pairs"), loop_q=loops("loop_q"),
                  loop_t=loops("loop_t"), loop_w=loops("loop_w"),
-                 loop_is_outlier=loops("loop_is_outlier"))
+                 loop_is_outlier=loops("loop_is_outlier"),
+                 events=[e for e in a.events if e.node < first]
+                 + [e for e in b.events if e.node >= first])
 
 
 def stream_order(g: Graph) -> np.ndarray:

@@ -1,10 +1,18 @@
-"""The benchmark's manifest, BENCHMARK.json at the root of the checkout, and
-the files it names.
+"""The benchmark's manifest, BENCHMARK.json at the root of the checkout,
+and the files it names.
 
 Everything that belongs to one configuration, one traffic mix or one metric
 sits in a file of its own, found by name:
 
-  port_bench/configs/<config>.json   the graph, its generator and sizes
+  port_bench/configs/<config>.json   the configuration: its graph (the
+                                     generator's name and arguments), the
+                                     program's settings (Config overrides),
+                                     the formulation, the reference file
+                                     and the limits of the comparison
+  port_bench/generators/<name>.py    generate(seed, **args) -> Graph, with
+                                     the graph's events
+  the configuration's reference.file the plain reference (harness/check.py
+                                     states what it answers)
   port_bench/traffic/<mix>.json      the arrivals and their rates
   port_bench/metrics/<metric>.py     the reader of one metric: read(rec)
 
@@ -16,6 +24,8 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
+import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -48,15 +58,21 @@ def traffic(name: str, base: str = BENCH_DIR) -> dict:
         return json.load(f)
 
 
+def module(path: str):
+    """The Python file at `path`, loaded as a module of its own. It is
+    entered in sys.modules under a name made from its path, as a dataclass
+    in it needs."""
+    name = "port_bench_file_" + re.sub(r"\W", "_", os.path.abspath(path))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(name: str, base: str = BENCH_DIR):
     """The read(rec) function of metric `name`, from its own file."""
-    path = os.path.join(base, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "port_bench_metric_" + name.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return module(os.path.join(base, "metrics", name + ".py")).read
 
 
 def _applies(metric: dict, cell: str, reported: set) -> bool:

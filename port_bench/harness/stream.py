@@ -1,28 +1,36 @@
 """One run of a cell: the program's server under the cell's traffic.
 
 In order:
-  1. generate the run's graph (generators.session): the session a robot
-     already has, drawn from the configuration's fixed session seed, the
-     same in every run, and after it the run's traffic, drawn from the
-     seed;
+  1. generate the run's graph (generators.session, by the configuration's
+     generator file): the session a robot already has, drawn from the
+     configuration's fixed session seed, the same in every run, and after
+     it the run's traffic, drawn from the seed; stamp its nodes as the
+     mix's keyframes arrive, and refuse a kidnap left open where set-up
+     or the drain waits for a solve (prepare);
   2. write the window's plan and start the clients' process (clients.py),
      before the program touches the card;
-  3. start the program's server, PoseGraphServer(store, Config(),
-     device).serve(), on a Unix socket: its solver thread (SolverEngine.run,
+  3. start the program's server, PoseGraphServer(store, config,
+     device).serve(), config the configuration's "settings" (overrides of
+     the program's Config, through Config.from_json; {} is Config()), on
+     a Unix socket: its solver thread (SolverEngine.run,
      the 2 Hz poll), its 30 Hz assembler and its ingest. Before it serves,
      the engine captures the configuration's one capacity bucket (its own
      per-bucket warm-up, _warm_one); every trigger of the session then
      solves in that bucket (the engine's bucket cover), so set-up captures
      nothing else. The prefix's head streams into the store in chunks of
-     keyframes, from the first that closes a loop, the next chunk added as
-     each solve returns: the session that a running robot has, solved as
-     it grew;
+     keyframes (ingest), from the first that closes a loop, the next chunk
+     added as each solve returns: the session that a running robot has,
+     solved as it grew;
   4. send the prefix's tail through the socket in batches, each solved
      and any escalated re-solve it started joined before the next;
   5. the clients' open loops: the mix's lead-in, then the window of
      `seconds`;
   6. drain: wait until every loop edge is in a written-back trajectory,
      stop the server.
+
+The loop edges due in the window are those the formulation counts, as
+the harness works them out from the graph's kidnap events
+(Graph.loop_counted); every edge is sent and stored.
 
 The benchmark stamps each return of the engine's trigger() by wrapping the
 bound method on the engine instance (TriggerStamps); the program is not
@@ -35,6 +43,7 @@ and stops both on every path out of it, a failure included (run's finally).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -52,6 +61,7 @@ from port_bench.harness import trace as trace_mod
 CLIENTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "clients.py")
 DRAIN_LIMIT_S = 60.0
+SOCKET_PATH_MAX = 100               # bytes, under AF_UNIX's 107
 
 
 class TriggerStamps:
@@ -280,6 +290,7 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *,
     (tests only) is called with the server before it serves. Every child
     process the run starts has ended when it returns or raises."""
     children: list = []
+    cwd = os.getcwd()
     try:
         return _run(cell, seed, seconds, trace, t_start=t_start,
                     device=device, bench=bench, root=root, patch=patch,
@@ -287,6 +298,117 @@ def run(cell: str, seed: int, seconds: float, trace: bool, *,
     finally:
         for proc in children:
             _stop(proc)
+        os.chdir(cwd)                   # see _socket_path
+
+
+def _socket_path(tmp: str) -> str:
+    """The server's Unix socket in `tmp`, named by the process id. A
+    socket's path takes at most 107 bytes (AF_UNIX), which a deep TMPDIR
+    and a long process id can pass; the server then could not bind and
+    the run would end with no result. Such a path is given by the socket's
+    name alone, and the process, and with it the clients' process that it
+    starts, works in `tmp` until run() returns."""
+    path = os.path.join(tmp, f"{os.getpid()}.sock")
+    if len(os.fsencode(path)) <= SOCKET_PATH_MAX:
+        return path
+    os.chdir(tmp)
+    return os.path.basename(path)
+
+
+@dataclasses.dataclass
+class Schedule:
+    """A run's graph, its nodes' stamp spacing, set-up's cuts and the
+    window's keyframes."""
+    g: generators.Graph
+    by_later: dict              # traffic.edges_by_later(g)
+    dt: int                     # ns between keyframe stamps
+    head: int                   # nodes ingested directly in set-up
+    first: int                  # the first node of the traffic
+    cuts: list                  # the head's chunk ends, head last
+    tail: list                  # the tail batches' nodes, one array each
+    kf_due: np.ndarray          # due offsets (s) from the window's start
+    kf_nodes: np.ndarray        # the node of each
+
+
+def prepare(cfg: dict, mix: dict, seed: int, seconds: float,
+            base: str = manifest.BENCH_DIR) -> Schedule:
+    """Step 1: the graph of the run and its schedule: the mix's lead-in,
+    then the window of `seconds`. Set-up waits for a solve of every loop
+    edge at the end of each head chunk and tail batch, and the drain at
+    the window's last keyframe; the program does not solve while
+    kidnapped, so a kidnap still open at one of those ends is refused
+    here, before anything waits for it."""
+    head, tail = int(cfg["prefix"]["nodes"]), int(cfg["prefix"]["tail"])
+    first = head + tail
+    g = generators.session(cfg["graph"], int(cfg["prefix"]["seed"]), seed,
+                           first, base)
+    by_later = traffic.edges_by_later(g)
+    lead = float(mix["lead_s"])
+    kf_due = traffic.keyframe_due(mix, lead + seconds) - lead
+    if first + len(kf_due) > g.n_nodes:
+        raise ValueError(f"{len(kf_due)} keyframes in {lead + seconds} s run "
+                         f"past the graph's {g.n_nodes} nodes")
+    chunk = int(cfg["prefix"]["chunk"])
+    cuts = list(range(min(by_later) + chunk, head, chunk)) + [head]
+    batches = np.array_split(np.arange(head, first),
+                             int(cfg["prefix"]["tail_batches"]))
+    kidnapped = g.kidnapped()[:, 1]
+    for what, ends in (("head chunk", cuts),
+                       ("tail batch", [int(b[-1]) + 1 for b in batches]),
+                       ("window", [first + len(kf_due)])):
+        for end in ends:
+            if kidnapped[end - 1]:
+                raise ValueError(
+                    f"a kidnap is open at the end of the {what} that ends "
+                    f"with node {end - 1}: set-up and the drain wait there "
+                    f"for a solve, which the program does not make while "
+                    f"kidnapped")
+    return Schedule(g=g, by_later=by_later, dt=traffic.stamp_ns(mix),
+                    head=head, first=first, cuts=cuts, tail=batches,
+                    kf_due=kf_due, kf_nodes=first + np.arange(len(kf_due)))
+
+
+def ingest(store, sch: Schedule, lo: int, hi: int) -> None:
+    """Set-up's ingest of nodes lo..hi - 1 in stream order: each node and
+    its loop edges by the store's own calls, the graph's events before or
+    after the node as the program's wire messages (messages.message_from_
+    json(...).apply(store)), as the socket would apply them."""
+    from solve_keyframe_pose_graph_tpu_torch.graph.messages import (
+        message_from_json)
+    g, dt = sch.g, sch.dt
+
+    def events(i, after):
+        for e in g.events_at(i, after):
+            message_from_json(traffic.event_message(e, dt)).apply(store)
+
+    for i in range(lo, hi):
+        events(i, False)
+        store.add_node(traffic.T0_NS + i * dt, g.vio_q[i], g.vio_t[i])
+        for k in sch.by_later.get(i, ()):
+            a, b = (int(v) for v in g.loop_pairs[k])
+            store.add_loop_edge(traffic.T0_NS + a * dt, traffic.T0_NS + b * dt,
+                                g.loop_q[k], g.loop_t[k], float(g.loop_w[k]))
+        events(i, True)
+
+
+def tail_sends(sch: Schedule) -> list:
+    """The prefix's tail in its batches, each as sent on the socket: (its
+    keyframes' lines, a pose query at its last keyframe, the store's node
+    count once it is in)."""
+    return [("".join("\n".join(traffic.keyframe_lines(sch.g, int(i),
+                                                      sch.by_later, sch.dt))
+                     + "\n" for i in batch).encode(),
+             (traffic.pose_line(sch.g, int(batch[-1]), sch.dt)
+              + "\n").encode(), int(batch[-1]) + 1)
+            for batch in sch.tail]
+
+
+def _settings(cfg: dict) -> str:
+    settings = cfg["settings"]
+    if not isinstance(settings, dict):
+        raise ValueError(f"a configuration's settings are an object of "
+                         f"Config overrides, not {settings!r}")
+    return json.dumps(settings)
 
 
 def _run(cell: str, seed: int, seconds: float, trace: bool, *,
@@ -301,37 +423,29 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
 
     # 1. the graph and the window's plan: the mix's lead-in, then the window
     t = time.monotonic()
-    head, tail = int(cfg["prefix"]["nodes"]), int(cfg["prefix"]["tail"])
-    g = generators.session(cfg["graph"], int(cfg["prefix"]["seed"]), seed,
-                           head + tail)
-    by_later = traffic.edges_by_later(g)
-    dt_ns = traffic.stamp_ns(mix)
+    start_s = t - t_start           # the interpreter, imports, CUDA's start
+    sch = prepare(cfg, mix, seed, seconds, os.path.join(root, "port_bench"))
+    g, head = sch.g, sch.head
+    kf_due, kf_nodes = sch.kf_due, sch.kf_nodes
     lead = float(mix["lead_s"])
-    kf_due = traffic.keyframe_due(mix, lead + seconds) - lead
-    first = head + tail
-    if first + len(kf_due) > g.n_nodes:
-        raise ValueError(f"{len(kf_due)} keyframes in {lead + seconds} s run "
-                         f"past the graph's {g.n_nodes} nodes")
-    kf_nodes = first + np.arange(len(kf_due))
-    n_edges = [len(by_later.get(int(i), ())) for i in kf_nodes]
     pose_due = traffic.pose_due(mix, seconds)
     pose_of = traffic.pose_nodes(kf_due, np.arange(len(kf_due)), pose_due)
     rng = np.random.default_rng([seed, 2])
     sample_at = np.sort(rng.uniform(0.1, 0.9, int(cfg["reference"]["answers"])))
-    tmp = os.path.join(tempfile.gettempdir(), "port_bench")
+    tmp = os.path.join(os.path.abspath(tempfile.gettempdir()), "port_bench")
     os.makedirs(tmp, exist_ok=True)
     tag = f"{cell}-{seed}-{os.getpid()}"
-    sock_path = os.path.join(tmp, f"{os.getpid()}.sock")
+    sock_path = _socket_path(tmp)
     plan_path = os.path.join(tmp, tag + ".plan.json")
     out_path = os.path.join(tmp, tag + ".clients.json")
     with open(plan_path, "w") as f:
         json.dump({"socket": sock_path,
                    "keyframes": [
                        [float(d), "\n".join(traffic.keyframe_lines(
-                           g, int(i), by_later, dt_ns)) + "\n"]
+                           g, int(i), sch.by_later, sch.dt)) + "\n"]
                        for d, i in zip(kf_due, kf_nodes)],
                    "pose_due": pose_due.tolist(),
-                   "pose_lines": [traffic.pose_line(g, int(i), dt_ns)
+                   "pose_lines": [traffic.pose_line(g, int(i), sch.dt)
                                   for i in kf_nodes],
                    "pose_line_of": pose_of.tolist()}, f)
     generate_s = time.monotonic() - t
@@ -350,13 +464,15 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
         PoseGraphServer)
     import torch
     import_s = time.monotonic() - t
+    t = time.monotonic()
     session = trace_mod.Session(t_mid=None, solves=3) if trace else None
     if session is not None and device == "cuda":
         trace_mod.prime_profiler()
     card, smi = _card_lines(device, children)
+    card_s = time.monotonic() - t
 
     t = time.monotonic()
-    config = Config()
+    config = Config.from_json(_settings(cfg))
     # the numpy store: the native store's binding races the solver's reads
     # under concurrent ingest (PERF.md, Open questions), and its library,
     # which the host rung's first build makes, would be picked up by the
@@ -364,22 +480,10 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
     store = make_store(config.capacity.initial_nodes, native=False,
                        max_capacity=config.capacity.max_nodes)
     store.set_extrinsic(np.array([0.0, 0.0, 0.0, 1.0]), np.zeros(3))
-    def ingest(lo: int, hi: int) -> None:
-        for i in range(lo, hi):
-            store.add_node(traffic.T0_NS + i * dt_ns, g.vio_q[i],
-                           g.vio_t[i])
-            for k in by_later.get(i, ()):
-                a, b = (int(v) for v in g.loop_pairs[k])
-                store.add_loop_edge(traffic.T0_NS + a * dt_ns,
-                                    traffic.T0_NS + b * dt_ns,
-                                    g.loop_q[k], g.loop_t[k],
-                                    float(g.loop_w[k]))
 
     # the head streams in chunks from the first node that closes a loop,
     # the next chunk fed as each solve returns (see TriggerStamps.feed)
-    chunk = int(cfg["prefix"]["chunk"])
-    cuts = list(range(min(by_later) + chunk, head, chunk)) + [head]
-    ingest(0, cuts[0])
+    ingest(store, sch, 0, sch.cuts[0])
     server = PoseGraphServer(store, config, device=device)
     engine = server.engine
     store_s = time.monotonic() - t
@@ -390,8 +494,8 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
     engine._warm_one(*(int(v) for v in cfg["bucket"]))
     capture_s = time.monotonic() - t
     stamps = TriggerStamps(engine, session)
-    stamps.feed = [lambda lo=lo, hi=hi: ingest(lo, hi)
-                   for lo, hi in zip(cuts, cuts[1:])]
+    stamps.feed = [lambda lo=lo, hi=hi: ingest(store, sch, lo, hi)
+                   for lo, hi in zip(sch.cuts, sch.cuts[1:])]
     engine.trigger = stamps
     if session is not None:
         session.wrap_server(server)
@@ -417,19 +521,12 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
         # builds and replays) and any escalated re-solve it started joined
         import socket
         t = time.monotonic()
-        batches = np.array_split(np.arange(head, first),
-                                 int(cfg["prefix"]["tail_batches"]))
         with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
             s.connect(sock_path)
-            for batch in batches:
-                s.sendall("".join(
-                    "\n".join(traffic.keyframe_lines(g, int(i), by_later,
-                                                      dt_ns))
-                    + "\n" for i in batch).encode())
-                s.sendall((traffic.pose_line(g, int(batch[-1]), dt_ns)
-                           + "\n").encode())
+            for lines, query, n_now in tail_sends(sch):
+                s.sendall(lines)
+                s.sendall(query)
                 s.makefile("rb").readline()
-                n_now = int(batch[-1]) + 1
                 _wait(lambda: store.node_len == n_now, 60, "a tail batch")
                 _wait(lambda: serve_error or any(
                     r["fired"] and r["edge_len"] == store.edge_len
@@ -438,8 +535,10 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
                     raise serve_error[0]
                 engine.drain()
         warm_s = time.monotonic() - t
+        t = time.monotonic()
         if clients.stdout.readline().strip() != "READY":
             raise RuntimeError("port_bench: the clients did not connect")
+        ready_s = time.monotonic() - t
         edges0 = store.edge_len
         # 5. the lead-in's traffic, then the window
         t0 = time.monotonic() + lead + 0.05
@@ -456,7 +555,7 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
         if clients.stdout.readline().strip() != "DONE":
             raise RuntimeError("port_bench: the clients failed")
         clients.wait(timeout=60)
-        n_sent = int(sum(n_edges))
+        n_sent = sum(len(sch.by_later.get(int(i), ())) for i in kf_nodes)
         _wait(lambda: store.edge_len == edges0 + n_sent or serve_error,
               DRAIN_LIMIT_S, "the window's ingest")
         drain_t = time.monotonic()
@@ -494,12 +593,13 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
     trace_mod.check_no_jax("after the window")
 
-    # every loop edge due in the window, by its store index
-    due, index = [], edges0
-    for d, k in zip(kf_due, n_edges):
-        if d >= 0:
-            due += [(index + j, t0 + float(d)) for j in range(k)]
-        index += k
+    # every counted loop edge due in the window, by its store index
+    due, index, counted = [], edges0, g.loop_counted
+    for d, i in zip(kf_due, kf_nodes):
+        for k in sch.by_later.get(int(i), ()):
+            if d >= 0 and counted[k]:
+                due.append((index, t0 + float(d)))
+            index += 1
     fired = [r for r in stamps.rows if r["fired"]]
     done_at, j = [], 0
     for idx, _ in due:
@@ -513,9 +613,11 @@ def _run(cell: str, seed: int, seconds: float, trace: bool, *,
         "cell": cell, "seed": seed, "seconds": seconds, "trace": trace,
         "device": device, "card": card, "clock": smi_summary,
         "t0": t0, "t_end": t_end, "setup_s": setup_s,
-        "setup": {"generate_s": generate_s, "import_s": import_s,
+        "setup": {"start_s": start_s, "generate_s": generate_s,
+                  "import_s": import_s, "card_s": card_s,
                   "store_s": store_s, "capture_s": capture_s,
-                  "prefix_s": prefix_s, "warm_s": warm_s},
+                  "prefix_s": prefix_s, "warm_s": warm_s,
+                  "ready_s": ready_s},
         "store": store_kind,
         "drain_s": drain_s, "memory_peak_bytes": peak,
         "edges": {"due": [u for _, u in due], "done": done_at,

@@ -9,10 +9,11 @@ A mix file (port_bench/traffic/<mix>.json) holds
 Keyframe i of the graph is stamped T0 + i / rate: keyframes are stamped at
 the rate at which they arrive, in set-up and in the window alike. Keyframe
 k of the window is due at k / rate; its loop edges (those whose later
-endpoint it is) are due with it and sent right after it. The pose client
-asks an imu_propagate query at each multiple of 1 / rate, at the stamp and
-VIO pose of the newest keyframe due by then: the robot's current pose.
-Both are open loops: every message is due at its time whatever the server
+endpoint it is) are due with it and sent right after it, with the graph's
+events placed before or after it around them. The pose client asks an
+imu_propagate query at each multiple of 1 / rate, at the stamp and VIO
+pose of the newest keyframe due by then: the robot's current pose. Both
+are open loops: every message is due at its time whatever the server
 does.
 """
 
@@ -22,7 +23,7 @@ import json
 
 import numpy as np
 
-from port_bench.harness.generators import Graph
+from port_bench.harness.generators import Event, Graph
 
 T0_NS = 1_000_000_000
 
@@ -69,10 +70,22 @@ def edges_by_later(g: Graph) -> dict:
     return out
 
 
+def event_message(ev: Event, dt_ns: int) -> dict:
+    """An event's wire message with its stamp: 1 ns after or before its
+    node's."""
+    return {**ev.message,
+            "t_ns": T0_NS + ev.node * dt_ns + (1 if ev.after else -1)}
+
+
 def keyframe_lines(g: Graph, i: int, by_later: dict, dt_ns: int) -> list:
-    """Node i's message, then each of its loop edges'."""
-    return [node_line(g, i, dt_ns)] + [edge_line(g, k, dt_ns)
-                                       for k in by_later.get(i, ())]
+    """The events placed before node i, node i's message, each of its loop
+    edges', then the events placed after it."""
+    return ([json.dumps(event_message(e, dt_ns))
+             for e in g.events_at(i, after=False)]
+            + [node_line(g, i, dt_ns)]
+            + [edge_line(g, k, dt_ns) for k in by_later.get(i, ())]
+            + [json.dumps(event_message(e, dt_ns))
+               for e in g.events_at(i, after=True)])
 
 
 def pose_line(g: Graph, i: int, dt_ns: int) -> str:

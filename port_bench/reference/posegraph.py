@@ -25,6 +25,10 @@ The tangent of a node is [dtheta, dt] with q <- Exp(dtheta) q, t <- t + dt.
 `precision="tf32"` runs the same algorithm with every array it keeps
 (inputs, Jacobians, residuals, the step and the state) rounded to TF32's
 10-bit mantissa: the lower-precision control.
+
+It serves one world: trigger_start, trigger_problem, trigger_solve and
+cost are what harness/check.py asks of a configuration's reference, and a
+graph with events (a kidnap) is refused.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from port_bench.harness import nse3
+from port_bench.harness import generators, nse3
 
 MIN_LM_DIAG, MAX_LM_DIAG = 1e-6, 1e32
 _H = 1e-30                       # complex step
@@ -459,3 +463,39 @@ def solve(p: Problem, q0, t0, s0, *, max_iterations: int,
             if radius < 1e-32:
                 break
     return Solution(q=q, t=t, s=s, cost=c, iterations=it, accepted=accepted)
+
+
+# ---------------------------------------------------------------------------
+# what harness/check.py asks of a configuration's reference
+# ---------------------------------------------------------------------------
+
+
+def trigger_start(cfg: dict, g, answer: dict):
+    if g.events:
+        raise ValueError("posegraph.py judges one world: the graph has "
+                         "events")
+    return start(g.vio_q, g.vio_t, answer["node_len"], answer["edge_len"],
+                 answer["prev"], cfg["formulation"]["switch_init"])
+
+
+def trigger_problem(cfg: dict, g, n: int, e: int, state,
+                    precision: str = "fp64") -> Problem:
+    """The first n keyframes and e loop edges in stream order, the prior on
+    node 0 at the start's pose."""
+    fml = cfg["formulation"]
+    order = generators.stream_order(g)[:e]
+    return build_problem(
+        g.vio_q[:n], g.vio_t[:n], g.loop_pairs[order, 0],
+        g.loop_pairs[order, 1], g.loop_q[order], g.loop_t[order],
+        fanout=fml["fanout"], decay=fml["decay"],
+        yaw_sigma2=fml["yaw_sigma2"], prior=(state[0][0], state[1][0]),
+        rounding=ROUNDING[precision])
+
+
+def trigger_solve(cfg: dict, p: Problem, state,
+                  precision: str = "fp64") -> Solution:
+    lm = cfg["formulation"]["lm"]
+    return solve(p, *state, max_iterations=lm["max_iterations"],
+                 function_tolerance=lm["function_tolerance"],
+                 parameter_tolerance=lm["parameter_tolerance"],
+                 initial_radius=lm["initial_radius"], precision=precision)

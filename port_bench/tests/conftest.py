@@ -3,8 +3,8 @@ from the root of the repository).
 
 `tiny_root` is a checkout-shaped directory that holds a BENCHMARK.json with
 one cell, `tiny_revisit`: the first configuration's file with the graph
-cut to 600 nodes and 1,000 loop edges, under the repository's traffic
-mixes and metric readers. The program serves it on the CPU (device="cpu")
+cut to 600 nodes and 1,000 loop edges, under the repository's
+generators, reference, traffic mixes and metric readers. The program serves it on the CPU (device="cpu")
 in a few seconds per solve. Tests marked `card` need an NVIDIA card and
 skip, deciding inside the test, where torch sees none.
 """
@@ -54,7 +54,7 @@ def make_tiny_root(path: str, limits: dict | None = None) -> str:
     with open(os.path.join(path, "port_bench", "configs", "tiny.json"),
               "w") as f:
         json.dump(cfg, f)
-    for d in ("traffic", "metrics"):
+    for d in ("generators", "reference", "traffic", "metrics"):
         link = os.path.join(path, "port_bench", d)
         if not os.path.exists(link):
             os.symlink(os.path.join(ROOT, "port_bench", d), link)

@@ -17,7 +17,11 @@ def test_every_name_has_its_file():
     bench = manifest.load()
     for c in bench["configs"]:
         cfg = manifest.config(bench, c["name"])
-        assert cfg["graph"]["generator"] and cfg["limits"]
+        assert cfg["limits"] and isinstance(cfg["settings"], dict)
+        assert os.path.isfile(os.path.join(
+            ROOT, "port_bench", "generators",
+            cfg["graph"]["generator"] + ".py"))
+        assert os.path.isfile(os.path.join(ROOT, cfg["reference"]["file"]))
         assert c["file"].startswith(bench["paths"][0] + "/")
     for w in bench["workloads"]:
         assert manifest.config(bench, w["config"])

@@ -22,7 +22,9 @@ LM = dict(max_iterations=10, function_tolerance=1e-6,
 
 
 def _graph():
-    return generators.circle_graph(N, E, seed=2_718_281_828_459)
+    return generators.generate({"generator": "circle_graph",
+                                "args": {"n_nodes": N, "n_loops": E}},
+                               2_718_281_828_459)
 
 
 def _program_problem(g, q, t, s):

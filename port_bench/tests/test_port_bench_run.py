@@ -8,7 +8,9 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import sys
+import tempfile
 import time
 import types
 
@@ -53,6 +55,15 @@ def test_last_line(tiny_root):
     # the session's first solve, from the VIO poses, and the window's
     assert any("first=True" in line for line in checks)
     assert any("first=False" in line for line in checks)
+    # set-up's steps account for setup_s but for the lead-in and the
+    # clients' start
+    [setup] = [line for line in lines if line.startswith("[setup]")]
+    steps = dict(kv.split("=") for kv in setup.split()[1:])
+    parts = sum(float(steps[k]) for k in (
+        "start_s", "generate_s", "import_s", "card_s", "store_s",
+        "capture_s", "prefix_s", "warm_s", "ready_s"))
+    rest = float(steps["setup_s"]) - parts - 2.05
+    assert -0.05 < rest < 0.5, steps
 
 
 def _engine_patch(method, wrap):
@@ -114,7 +125,7 @@ def test_the_control_is_not_correct(tiny_root):
     rec = stream.run(TINY_CELL, SEED, float(SECONDS), False,
                      t_start=time.monotonic(), device="cpu", bench=bench,
                      root=tiny_root)
-    got = control.readings(cfg, rec)
+    got = control.readings(cfg, rec, tiny_root)
     assert got["program"] and len(got["tf32"]) == len(got["program"])
     lim = cfg["limits"]
     for name, fails in (("program", False), ("tf32", True)):
@@ -138,6 +149,20 @@ def test_an_unsound_trace_gives_no_result(profile):
     profile = dict(profile, device_events=5000,
                    by_name={"band_matvec_kernel<float>": [100, 1]})
     run._trace_sound({"profile": profile})
+
+
+def test_a_deep_tmpdir_still_serves(tiny_root, tmp_path, monkeypatch):
+    """A TMPDIR so deep that the socket's path passes the 107 bytes that
+    AF_UNIX takes: the run still serves, by the socket's name in that
+    directory, and gives back the working directory it found."""
+    deep = tmp_path / ("d" * 120)
+    deep.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(deep))
+    assert len(os.fsencode(deep / "port_bench" / "1.sock")) > 107
+    cwd = os.getcwd()
+    res, _ = _run(tiny_root)
+    assert res["correct"] is True and res["failed"] == 0
+    assert os.getcwd() == cwd
 
 
 def test_refuses_without_a_card(tiny_root, capsys):
@@ -217,6 +242,29 @@ def test_no_child_without_the_program(tiny_root, monkeypatch):
                    device="cpu", root=tiny_root)
     assert "no result" in str(e.value.code)
     assert started == []
+
+
+def test_the_reference_is_loaded_before_the_run(tiny_root, monkeypatch):
+    """The configuration's reference module, and with it its imports, is
+    in place before the run starts: the program's host rung imports the
+    same modules on its first escalation, inside set-up."""
+    order = []
+    load = run.check.reference
+
+    def reference(cfg, root):
+        order.append("reference")
+        return load(cfg, root)
+
+    def serve(*a, **kw):
+        order.append("run")
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(run.check, "reference", reference)
+    monkeypatch.setattr(run.stream, "run", serve)
+    with pytest.raises(RuntimeError, match="stop"):
+        run.main(["--workload", TINY_CELL, "--seed", str(SEED), "--seconds",
+                  "1", "--trace", "0"], device="cpu", root=tiny_root)
+    assert order == ["reference", "run"]
 
 
 def test_jax_names_compare_whole():

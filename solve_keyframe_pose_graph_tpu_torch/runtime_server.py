@@ -110,7 +110,8 @@ class PoseGraphServer:
     def _trace(self) -> dict:
         """The threads' counters: the ingest threads' messages and
         _ingest_lock waits, the assembles and their hold of the engine's
-        state_lock (Composer.trace), the solver loop's poll sleeps, and
+        state_lock (Composer.trace), the solver loop's poll sleeps and its
+        triggers refused while kidnapped (kidnap_polls), and
         under "phases" the engine's time by phase (PhaseTimer.snapshot:
         each part of the triggers so far, world_mapping, first_contact,
         initial_guesses, priors, device_solve with prepare, problem_build
@@ -119,7 +120,8 @@ class PoseGraphServer:
         return {"ingest": dict(self.ingest_trace),
                 "assembler": dict(self.composer.trace),
                 "poll": {"sleeps": eng.poll_sleeps,
-                         "sleep_s": eng.poll_sleep_s},
+                         "sleep_s": eng.poll_sleep_s,
+                         "kidnap_polls": eng.kidnap_polls},
                 "phases": eng.timer.snapshot()}
 
     def _query(self, obj) -> dict:

@@ -20,7 +20,14 @@ fp32 distress signature is re-solved on the fp64 ladder (ops/lm.py
 escalate_resolve): in a background thread (stream.background_escalation,
 the default), whose result is dropped if a world merge landed meanwhile,
 or inline in the trigger. The background rung takes the device lock around
-each of its device steps, so trigger solves wait at most one of them.
+each of its device steps, so trigger solves wait at most one of them. A
+trigger that made a first contact between worlds is not escalated: its
+start places a world by one loop edge's observation, metres off where that
+edge is an outlier, and the rejections of a solve from such a start are
+the LM's radius search, which the fp64 rung repeats at the same cost (on
+the card, a 4.5k-node merge re-solved on the host rung ended 4e-6 from the
+fp32 cost, itself unconverged after 10 iterations), while the triggers it
+holds back wait for it for seconds.
 
 Threads and CUDA streams: every worker thread runs its device work on the
 stream that was current on the submitting thread, so a problem built on one
@@ -97,8 +104,13 @@ solve_stats row gets t_start, t_end, spans_ms, the summed lock_wait_ms,
 launch_ms and result_wait_ms (None where no such span ran), poll_sleep_s
 (run()'s sleeps so far) and its new edges' waits in the store
 (_edge_waits); its trigger_wall_ms runs from that start, so it holds the
-kidnap and world checks and _edge_waits too. The timer's totals of every
-phase are the status query's trace.phases (runtime_server.py).
+kidnap and world checks and _edge_waits too. Its world counters: worlds
+and sets (the registry's, after the trigger's first contacts), priors,
+first_contacts, rebased_nodes (case 1), mapped_nodes (case 4) and
+dead_nodes (the trigger's nodes in a kidnap dead zone); kidnap_polls
+counts the triggers refused, with new edges, while kidnapped. The timer's
+totals of every phase are the status query's trace.phases
+(runtime_server.py).
 """
 
 from __future__ import annotations
@@ -251,6 +263,8 @@ class SolverEngine:
         self.prev_edge_len = 0
         self.prev_node_len = 0
         self.trigger_id = 0
+        # triggers with new loop edges refused while kidnapped
+        self.kidnap_polls = 0
         self.n_solve_convergences = 0
         self.last_result: Optional[lm_ops.LMResult] = None
         self.solve_stats: list = []
@@ -342,8 +356,12 @@ class SolverEngine:
         node_len = store.node_len
         # the trigger's start: every edge it takes in was stamped before
         t_start = time.monotonic()
-        if (edge_len == self.prev_edge_len or store.current_kidnap_status
-                or node_len == 0):
+        if edge_len == self.prev_edge_len or node_len == 0:
+            self.status = 0
+            return False
+        if store.current_kidnap_status:
+            # the reference's solver sleeps while kidnapped
+            self.kidnap_polls += 1
             self.status = 0
             return False
         if self._bg_thread is not None and self._bg_thread.is_alive():
@@ -382,6 +400,7 @@ class SolverEngine:
             node_worlds = store.node_worlds()[:node_len]
 
         # ---- 1/2: new loop edges; inter-world first contact
+        first_contacts = 0
         with timer.phase("first_contact"):
             for e in range(self.prev_edge_len, edge_len):
                 a, b = store.edge_idx_info(e)
@@ -402,6 +421,7 @@ class SolverEngine:
                     w_b, w_a, q_rel, t_rel,
                     f"this pose computed from edge {a} <--> {b}")
                 after = worlds.get_world_to_setid_map()
+                first_contacts += 1
                 self._changes_to_setid.clear()
                 for wid, sid_before in before.items():
                     if after[wid] != sid_before:
@@ -410,7 +430,7 @@ class SolverEngine:
 
         # ---- 4: initial guesses, 4-case table
         with timer.phase("initial_guesses"):
-            self._set_initial_guesses(node_len, node_worlds)
+            guessed = self._set_initial_guesses(node_len, node_worlds)
         # ---- 5: soft anchors on set-root world starts. A live store may
         # have grown since node_len was read (the server ingests beside the
         # solver): a world whose first node is not in this solve's nodes
@@ -432,6 +452,10 @@ class SolverEngine:
                     prior_w.append(max(
                         1.1, math.log(1 + max(ww_end - ww_start, 0)) / 2.0))
         self._changes_to_setid.clear()
+        taken = dict(taken, worlds=store.n_worlds(), sets=worlds.n_sets(),
+                     priors=len(prior_idx), first_contacts=first_contacts,
+                     dead_nodes=int(np.count_nonzero(node_worlds < 0)),
+                     **guessed)
 
         # ---- 6: solve on the device
         self.status = 2
@@ -569,12 +593,14 @@ class SolverEngine:
                       rec: timing.Record, build: dict) -> None:
         """Escalate a distressed result if the config says so, then write
         back. `res` is a host result (_to_host); `rec` the trigger's spans;
-        `build` the problem build's, edge and poll entries of the trigger's
-        solve_stats row, to which an inline escalation adds its
-        rung_stats."""
+        `build` the problem build's, edge, poll and world entries of the
+        trigger's solve_stats row, to which an inline escalation adds its
+        rung_stats. A trigger with first contacts is not escalated (see
+        the module note)."""
         escalated = False
         solver = self.config.solver
         if (solver.adaptive_fp64 and solver.dtype != "float64"
+                and not build["first_contacts"]
                 and lm_ops.needs_escalation(res, solver.escalate_rejects)):
             k = solver.escalate_rejects
             if self.config.stream.background_escalation:
@@ -702,9 +728,11 @@ class SolverEngine:
         self.timer.add("fp64_escalation", wall_ms / 1000.0)
 
     def _set_initial_guesses(self, node_len: int, node_worlds: np.ndarray
-                             ) -> None:
+                             ) -> dict:
         """Step 4 of the trigger: the 4-case initial-guess / re-basing table
-        on (in_change_set, before_solvedUntil), vectorized."""
+        on (in_change_set, before_solvedUntil), vectorized. Returns the
+        solve_stats entries rebased_nodes (case 1) and mapped_nodes (case
+        4)."""
         store = self.store
         worlds = store.worlds
         su = self.solved_until
@@ -783,6 +811,8 @@ class SolverEngine:
                                        vio_q_all[c4], vio_t_all[c4])
                 opt_q[c4] = nse3.quat_normalize(qn)
                 opt_t[c4] = tn
+        return dict(rebased_nodes=int(np.count_nonzero(c1)),
+                    mapped_nodes=int(np.count_nonzero(c4)))
 
     def _prepare_solve(self, node_len, edge_len, node_worlds,
                        prior_idx, prior_q, prior_t, prior_w

@@ -524,11 +524,12 @@ def test_initial_guess_table_fuzz_vs_literal_port():
         def checked_guesses(node_len, node_worlds, eng=eng,
                             orig_guesses=orig_guesses):
             ql, tl = _initial_guesses_literal(eng, node_len, node_worlds)
-            orig_guesses(node_len, node_worlds)
+            counts = orig_guesses(node_len, node_worlds)
             np.testing.assert_array_equal(eng._opt_q[:node_len], ql)
             np.testing.assert_array_equal(eng._opt_t[:node_len], tl)
             nonlocal n_checked
             n_checked += 1
+            return counts
 
         eng._set_initial_guesses = checked_guesses
 
@@ -600,3 +601,30 @@ def test_warmup_primes_the_host_rung(monkeypatch, adaptive, backend, loads):
     assert eng.warmup_join(timeout=120)
     assert (eng._host_rung_thread is not None) is loads
     assert (native_ldl._lib is not None) is loads
+
+
+def test_a_merge_trigger_is_not_escalated():
+    """With the ladder forced (escalate_rejects=0), a one-world trigger is
+    re-solved inline on it, and a trigger whose loop edge first joins two
+    worlds is served as solved: its start placed a world by one edge, and
+    the fp64 rung would repeat the same search (engine module note)."""
+    store = GraphStore()
+    eng = SolverEngine(store, _escalating(False), device="cpu")
+    for i in range(20):
+        store.add_node(T0 + i * S, nse3.quat_identity(), [float(i), 0, 0])
+    store.add_loop_edge(T0 + 15 * S, T0 + 5 * S, nse3.quat_identity(),
+                        [-10.0, 0, 0], 1.0)
+    assert eng.trigger()
+    assert eng.solve_stats[-1]["fp64_escalated"] == "fp64-cpu"
+    store.kidnap_indicator(T0 + int(19.5 * S), "kidnapped")
+    store.kidnap_indicator(T0 + int(20.5 * S), "unkidnapped")
+    for j in range(10):
+        store.add_node(T0 + (21 + j) * S, nse3.quat_identity(),
+                       [float(j), 3.0, 0])
+    store.add_loop_edge(T0 + 25 * S, T0 + 10 * S, nse3.quat_identity(),
+                        [-6.0, 0, 0], 1.0)
+    assert eng.trigger()
+    row = eng.solve_stats[-1]
+    assert row["first_contacts"] == 1 and row["mapped_nodes"] == 10
+    assert row["fp64_escalated"] is False
+    assert not [r for r in eng.solve_stats if r.get("background_escalation")]

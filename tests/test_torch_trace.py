@@ -351,3 +351,49 @@ def test_a_span_outside_a_record_keeps_nothing():
     assert [p for p, _, _ in rec.spans] == ["launch/result_wait", "launch"]
     assert rec.total_ms("launch", "result_wait") >= 0.0
     assert rec.total_ms("to_host") is None
+
+
+def test_a_two_world_stream_counts_its_worlds():
+    """VIO lost after node 19, back before node 25: a trigger refused
+    while kidnapped, then one with two worlds each anchored, then one
+    whose inter-world edge merges them and re-bases world 1's solved
+    nodes. The rows' world counters and the status query's kidnap_polls
+    read what the stream implies."""
+    store = GraphStore()
+    server = PoseGraphServer(store, _config(), device="cpu")
+    eng = server.engine
+
+    def send(msg):
+        server.handle_line(json.dumps(msg.to_json()))
+
+    def node(i):
+        send(msgs.NodePoseMsg(T0 + i * DT, GRAPH.vio_q[i], GRAPH.vio_t[i]))
+
+    def edge(a, b):
+        send(msgs.LoopEdgeMsg(T0 + a * DT, T0 + b * DT, GRAPH.loop_q[0],
+                              GRAPH.loop_t[0]))
+
+    for i in range(20):
+        node(i)
+    send(msgs.KidnapIndicatorMsg(T0 + 19 * DT + 1, "kidnapped"))
+    for i in range(20, 25):
+        node(i)
+    edge(22, 2)                                 # in the dead zone
+    assert not eng.trigger() and eng.kidnap_polls == 1
+    send(msgs.KidnapIndicatorMsg(T0 + 25 * DT - 1, "unkidnapped"))
+    for i in range(25, 40):
+        node(i)
+    edge(12, 3)
+    assert eng.trigger()
+    keys = ("worlds", "sets", "priors", "first_contacts", "rebased_nodes",
+            "mapped_nodes", "dead_nodes")
+    row = eng.solve_stats[-1]
+    assert [row[k] for k in keys] == [2, 2, 2, 0, 0, 15, 5]
+    edge(30, 5)                                 # world 1 meets world 0
+    assert eng.trigger()
+    row = eng.solve_stats[-1]
+    assert [row[k] for k in keys] == [2, 1, 1, 1, 15, 0, 5]
+    assert not eng.trigger() and eng.kidnap_polls == 1
+    got = json.loads(server.handle_line(json.dumps(
+        {"kind": "query", "what": "status"})))["trace"]
+    assert got["poll"]["kidnap_polls"] == 1

@@ -166,8 +166,9 @@ class CapacityConfig:
 class StreamConfig:
     """Streaming-engine rates (replace the reference thread loop rates)."""
 
-    trigger_poll_hz: float = 2.0        # reference: 0.5 Hz poll (:1257); we
-                                        # poll faster since a no-op poll is free
+    trigger_poll_hz: float = 2.0        # reference: 0.5 Hz poll (:1257); the
+                                        # longest wait of SolverEngine.run,
+                                        # which a loop edge's append ends
     assembler_hz: float = 30.0          # Composer.cpp:10 (30 Hz)
     # Leave the device solve of trigger N in flight instead of blocking on
     # it: the result is collected at the START of trigger N+1 (or by

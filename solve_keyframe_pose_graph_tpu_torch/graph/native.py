@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 import time
 from typing import List, Optional
 
@@ -166,6 +167,7 @@ class NativeGraphStore(GraphStore):
         self.worlds = WorldRegistry()
         self.imu_T_cam_q: Optional[np.ndarray] = None
         self.imu_T_cam_t: Optional[np.ndarray] = None
+        self.wake = threading.Event()
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -301,6 +303,7 @@ class NativeGraphStore(GraphStore):
         self._e_desc.append(description)
         self.edge_mask.append(True)
         self.edge_arrivals.append(arrived)
+        self.wake.set()
         return e
 
     def add_loop_edge_by_index(self, ia, ib, q_b_T_a, t_b_T_a, weight,
@@ -317,6 +320,7 @@ class NativeGraphStore(GraphStore):
         self._e_desc.append(description)
         self.edge_mask.append(True)
         self.edge_arrivals.append(arrived)
+        self.wake.set()
         return e
 
     def mark_as_kidnapped(self, t_ns: int) -> None:
@@ -328,6 +332,7 @@ class NativeGraphStore(GraphStore):
         rc = self._lib.kpg_mark_unkidnapped(self._h, int(t_ns))
         assert rc == 0, "can mark as unkidnapped only when kidnapped"
         self.worlds.world_starts(int(t_ns))
+        self.wake.set()
 
     # ---------------- timeline queries ----------------
 

@@ -19,12 +19,17 @@ Differences from the reference, by design:
     same 1 ms tolerance and same first-match semantics
   * JSON save/load keeps the reference's log_posegraph.json schema
     (NodeDataManager.cpp:503-628) so recorded fixtures interoperate.
+  * a wake (threading.Event) that each loop edge's append sets once the
+    edge is whole, and each kidnap's end sets: the solver loop waits on it
+    between triggers (SolverEngine.run) where the reference's thread
+    sleeps out its poll period.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import threading
 import time
 from typing import List, Optional
 
@@ -67,6 +72,8 @@ class GraphStore:
 
         self.imu_T_cam_q: Optional[np.ndarray] = None
         self.imu_T_cam_t: Optional[np.ndarray] = None
+        # set by a loop edge's append and a kidnap's end (module note)
+        self.wake = threading.Event()
 
     # ------------------------------------------------------------------
     # capacity
@@ -168,6 +175,8 @@ class GraphStore:
         # stamped before it is counted: every counted edge has its stamp
         self.edge_arrivals.append(time.monotonic())
         self._e += 1
+        # last: the edge a woken trigger reads is whole
+        self.wake.set()
         return e
 
     def set_extrinsic(self, q, t) -> None:
@@ -194,6 +203,7 @@ class GraphStore:
         self.current_kidnap_status = False
         self.kidnap_ends.append(int(t_ns))
         self.worlds.world_starts(int(t_ns))
+        self.wake.set()            # the edges held over the kidnap
 
     def kidnap_indicator(self, t_ns: int, frame_id: str) -> None:
         """rcvd_kidnap_indicator_callback wire format: frame_id is

@@ -6,7 +6,8 @@ The wire is a Unix-domain socket carrying JSONL messages in the
 graph.messages schema. The server runs the full pipeline:
 
   ingest thread(s): one per client connection, feeding the GraphStore
-  solver thread:    SolverEngine.run() trigger loop
+  solver thread:    SolverEngine.run() trigger loop, woken by each loop
+                    edge the store appends
   status thread:    1 Hz StatusPrinter
   assembler thread: Composer.assemble() at stream.assembler_hz
 
@@ -110,8 +111,9 @@ class PoseGraphServer:
     def _trace(self) -> dict:
         """The threads' counters: the ingest threads' messages and
         _ingest_lock waits, the assembles and their hold of the engine's
-        state_lock (Composer.trace), the solver loop's poll sleeps and its
-        triggers refused while kidnapped (kidnap_polls), and
+        state_lock (Composer.trace), the solver loop's poll waits, those
+        of them that ended before the period (wakes) and its triggers
+        refused while kidnapped (kidnap_polls), and
         under "phases" the engine's time by phase (PhaseTimer.snapshot:
         each part of the triggers so far, world_mapping, first_contact,
         initial_guesses, priors, device_solve with prepare, problem_build
@@ -121,6 +123,7 @@ class PoseGraphServer:
                 "assembler": dict(self.composer.trace),
                 "poll": {"sleeps": eng.poll_sleeps,
                          "sleep_s": eng.poll_sleep_s,
+                         "wakes": eng.poll_wakes,
                          "kidnap_polls": eng.kidnap_polls},
                 "phases": eng.timer.snapshot()}
 

@@ -102,7 +102,8 @@ state_lock_wait and device_lock_wait at each acquisition of those locks;
 an async solve's under async_solve on its worker and collect. Its
 solve_stats row gets t_start, t_end, spans_ms, the summed lock_wait_ms,
 launch_ms and result_wait_ms (None where no such span ran), poll_sleep_s
-(run()'s sleeps so far) and its new edges' waits in the store
+(run()'s waits so far, in seconds), poll_wakes (those of them that ended
+before the poll's period) and its new edges' waits in the store
 (_edge_waits); its trigger_wall_ms runs from that start, so it holds the
 kidnap and world checks and _edge_waits too. Its world counters: worlds
 and sets (the registry's, after the trigger's first contacts), priors,
@@ -372,6 +373,7 @@ class SolverEngine:
             return False
 
         taken = dict(poll_sleep_s=self.poll_sleep_s,
+                     poll_wakes=self.poll_wakes,
                      **self._edge_waits(t_start, edge_len))
         with timing.recording(timing.Record(t_start)) as rec:
             return self._fire(rec, node_len, edge_len, taken)
@@ -516,13 +518,20 @@ class SolverEngine:
 
     @property
     def poll_sleeps(self) -> int:
-        """The sleeps of run()'s poll so far."""
+        """The waits of run()'s poll so far."""
         return self.timer.counts.get("poll_sleep", 0)
 
     @property
     def poll_sleep_s(self) -> float:
-        """The seconds run()'s poll has slept so far."""
+        """The seconds run()'s poll has waited so far."""
         return self.timer.totals.get("poll_sleep", 0.0)
+
+    @property
+    def poll_wakes(self) -> int:
+        """The waits of run()'s poll that ended before its period: woken
+        by a loop edge or a kidnap's end, or cut short by an escalated
+        re-solve's end."""
+        return self.timer.counts.get("poll_wake", 0)
 
     def _solve_to_host(self, problem: Problem, kw: dict, node_len: int,
                        edge_len: int, stream_ctx=contextlib.nullcontext
@@ -1103,13 +1112,56 @@ class SolverEngine:
             self._warmed_buckets.add((n_cap, e_cap, cfg.solver.dtype))
 
     def run(self, poll_hz: Optional[float] = None, stop_when=None) -> None:
-        """Blocking trigger loop (the reference thread's ros::Rate loop).
-        Each sleep of the poll is the phase poll_sleep (poll_sleeps,
-        poll_sleep_s)."""
+        """Blocking trigger loop (the reference thread's ros::Rate loop,
+        whose fixed sleep becomes a wait for work). After a trigger that
+        fires nothing the loop waits at most 1 / poll_hz (_wait_for_work):
+        the phase poll_sleep (poll_sleeps, poll_sleep_s); a wait that ends
+        before the period is counted as poll_wake too (poll_wakes, its
+        seconds under the same name). The store's wake is cleared before
+        each trigger, so an edge that lands while the trigger runs ends
+        the wait after it at once. Every trigger runs here, on the loop's
+        thread."""
         period = 1.0 / (poll_hz or self.config.stream.trigger_poll_hz)
+        wake = self.store.wake
         while True:
             if stop_when is not None and stop_when():
                 return
-            if not self.trigger():
-                with self.timer.phase("poll_sleep"):
-                    time.sleep(period)
+            wake.clear()
+            if self.trigger():
+                continue
+            t0 = time.monotonic()
+            with self.timer.phase("poll_sleep"):
+                woke = self._wait_for_work(period)
+            if woke:
+                self.timer.add("poll_wake", time.monotonic() - t0)
+
+    def _wait_for_work(self, timeout: float) -> bool:
+        """run()'s wait after a trigger that fired nothing, at most
+        `timeout` seconds; True where it ended before. While a gate of the
+        trigger is shut (an escalated re-solve in flight, the robot
+        kidnapped) new edges would be refused, so their wakes do not end
+        the wait: it lasts until that gate opens (the re-solve's thread
+        ends, the kidnap ends), and kidnap_polls keeps the poll's rate.
+        Otherwise it lasts until the store's wake is set."""
+        store = self.store
+        end = time.monotonic() + timeout
+        gated = False
+        while True:
+            left = end - time.monotonic()
+            if left <= 0:
+                return False
+            bg = self._bg_thread
+            if bg is not None and bg.is_alive():
+                gated = True
+                bg.join(left)
+            elif store.current_kidnap_status:
+                gated = True
+                store.wake.clear()
+                # the kidnap's end sets the wake: read the status after
+                # the clear, so that an end between them is not lost
+                if store.current_kidnap_status:
+                    store.wake.wait(left)
+            else:
+                # a gate that opened in this wait: the edges it held back
+                # may have set the wake before the trigger's clear
+                return gated or store.wake.wait(left)

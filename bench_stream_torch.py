@@ -10,9 +10,8 @@ The counterpart of the engine rows of benchmarks/run_baseline.py
 (bench_streaming, bench_multiworld, bench_warmup_cache), which run the JAX
 package: the same graphs, seeds, trigger cadence, pacing, warmup calls,
 distress injection and row keys. --only takes run_baseline.py's keys of
-those rows (streaming, streaming_async, streaming_warm, streaming_10k,
-streaming_paced (two rows, sync and async), streaming_30k,
-streaming_distress, multiworld) and two of the port's: startup (the row
+those rows (streaming, streaming_warm, streaming_10k, streaming_paced,
+streaming_30k, streaming_distress, multiworld) and two of the port's: startup (the row
 startup_10k, bench_warmup_cache's counterpart) and cover (cover_2k_4000).
 Default: every row. --out writes every process's full record as JSON
 (never into benchmarks/results.json).
@@ -58,8 +57,7 @@ and trigger_captures; the warmup's buckets, summed capture_s,
 instantiate_s and pool MB, and its wall; the incremental builds, full and
 delta; the background escalations (rung, applied, wall, rung_stats); the
 final chi^2. Beside that: each trigger's box and exact bucket (read
-through chip_smoke.solves_seen on a sync row; on an async row the covered
-triggers are those whose exact bucket never entered _warmed_buckets);
+through chip_smoke.solves_seen);
 the K1 and K2 launches of the stream, counted (chip_smoke.counted) and
 what its LM and CG counts imply (chip_smoke.expected_launches); the
 card's name and power limit and nvidia-smi's SM clock, power and
@@ -73,8 +71,7 @@ result line): the final chi^2 finite and within 2% of the JAX row's
 (benchmarks/results.json; chip_smoke.QUALITY); 0 trigger captures on
 every warmed row; launches as the LM and CG counts imply (not on
 startup_10k, whose trigger shares the card with the warmup thread's
-priming solves); the sync and async rows of one configuration with the
-same final chi^2, bit for bit; in a distress row the forced escalation
+priming solves); in a distress row the forced escalation
 applied and at least one trigger served after it landed (a poll or the
 settle trigger); multiworld_1500 with 3 worlds in 1 set; cover_2k_4000's
 boxes as cover_plan computes them without a solve, and the same triggers
@@ -123,25 +120,24 @@ CHILD_TIMEOUT_S = 1800
 
 
 def row_key(nodes: int, loops: int, warm: bool = False, pace_ms: float = 0,
-            async_dispatch: bool = False, inject_at: int = 0) -> str:
-    """run_baseline.py's key of a streaming row (its :323-328)."""
+            inject_at: int = 0) -> str:
+    """run_baseline.py's key of a sync streaming row (its :323-328)."""
     return (f"streaming_{nodes // 1000}k_{loops}" + ("_warm" if warm else "")
             + ("_paced" if pace_ms else "")
-            + ("_async" if async_dispatch else "")
             + ("_distress" if inject_at else ""))
 
 
 def _stream(only, chi2, nodes=2000, loops=400, every=50, **kw) -> tuple:
     spec = dict(kind="stream", only=only, chi2_jax=chi2, nodes=nodes,
                 loops=loops, every=every, seed=1, warm=False, pace_ms=0.0,
-                async_dispatch=False, inject_at=0)
+                inject_at=0)
     spec.update(kw)
     return row_key(nodes, loops, spec["warm"], spec["pace_ms"],
-                   spec["async_dispatch"], spec["inject_at"]), spec
+                   spec["inject_at"]), spec
 
 
 # the JAX rows' final chi^2 (benchmarks/results.json; BASELINE.md:279-289)
-# of the 2k/400 stream: cold, async, warmed, paced (sync and async)
+# of the 2k/400 stream: cold, warmed, paced
 CHI2_2K = 0.14264783263206482
 # run_baseline.py:514, nodes before which a kidnap (True) or an unkidnap
 # (False) arrives
@@ -154,13 +150,10 @@ ROWS = dict([
     ("startup_10k", dict(kind="startup", only="startup", nodes=10000,
                          loops=2000)),
     _stream("streaming", CHI2_2K),
-    _stream("streaming_async", CHI2_2K, async_dispatch=True),
     _stream("streaming_warm", CHI2_2K, warm=True),
     _stream("streaming_10k", 1.1805845499038696, nodes=10000, loops=2000,
             every=100, warm=True),
     _stream("streaming_paced", CHI2_2K, warm=True, pace_ms=150.0),
-    _stream("streaming_paced", CHI2_2K, warm=True, pace_ms=150.0,
-            async_dispatch=True),
     _stream("streaming_30k", 2.353930711746216, nodes=30000, loops=3000,
             every=500, warm=True, pace_ms=2000.0, inject_at=5),
     _stream("streaming_distress", 0.14265134930610657, warm=True,
@@ -176,11 +169,6 @@ ONLY_KEYS = tuple(dict.fromkeys(s["only"] for s in ROWS.values()))
 COVER_WARMUP = {"A": ((5000, 2500), True), "B": ((2000, 4000), False)}
 # the start-up row's stream: one trigger in the first bucket
 STARTUP_STREAM = dict(n_nodes=1000, n_loops=200, seed=1)
-# the sync and async rows of one configuration, whose final chi^2 must be
-# equal bit for bit
-SAME_CHI2 = (("streaming_2k_400", "streaming_2k_400_async"),
-             ("streaming_2k_400_warm_paced",
-              "streaming_2k_400_warm_paced_async"))
 
 
 # ----------------------------------------------------------------------
@@ -315,12 +303,11 @@ def timed_warmup(eng, nodes: int, loops: int, **kw):
 
 
 @contextlib.contextmanager
-def counted_boxes(key: str, sync: bool):
+def counted_boxes(key: str):
     """The launches of the body, counted under `key` (chip_smoke.counted),
-    and on a sync engine the (n_cap, e_cap, ms) of each trigger's solve
+    and the (n_cap, e_cap, ms) of each trigger's solve
     (chip_smoke.solves_seen)."""
-    with chip_smoke.counted(key), (chip_smoke.solves_seen() if sync
-                                   else contextlib.nullcontext([])) as seen:
+    with chip_smoke.counted(key), chip_smoke.solves_seen() as seen:
         yield seen
 
 
@@ -329,20 +316,17 @@ def engine_record(key: str, eng, fired: list, seen: list) -> dict:
     the stream (see the module note)."""
     cap = eng.config.capacity
     rows = [r for r in eng.solve_stats if "trigger_wall_ms" in r]
-    if seen and len(seen) != len(rows):
+    if len(seen) != len(rows):
         raise AssertionError(f"{len(seen)} solves for {len(rows)} triggers")
     by_id = {r["trigger"]: r for r in rows}
     walls = [p["wall_ms"] for p in fired]
     med = float(np.median(walls))
-    with eng.state_lock:
-        warmed = {(n, e) for n, e, _ in eng._warmed_buckets}
     boxes = []
     for i, r in enumerate(rows):
         exact = exact_bucket(cap, r["node_len"], r["edge_len"])
-        box = list(seen[i][:2]) if seen else None
-        boxes.append([r["node_len"], r["edge_len"], list(exact), box])
-    covered = (sum(b[3] != b[2] for b in boxes) if seen
-               else sum(tuple(b[2]) not in warmed for b in boxes))
+        boxes.append([r["node_len"], r["edge_len"], list(exact),
+                      list(seen[i][:2])])
+    covered = sum(b[3] != b[2] for b in boxes)
     last = rows[-1] if rows else {}
     return dict(
         key=key, triggers=len(fired), **wall_stats(walls),
@@ -405,18 +389,15 @@ def stream_row(key: str, device, config=None, **resize) -> dict:
     bench_streaming); `config` replaces the default Config and `resize`
     entries of the row's spec (the tests' small sizes)."""
     s = dict(ROWS[key], **resize)
-    cfg = config or Config()
-    cfg = dataclasses.replace(cfg, stream=dataclasses.replace(
-        cfg.stream, async_dispatch=s["async_dispatch"]))
     g = synthetic.circle_graph(n_nodes=s["nodes"], n_loops=s["loops"],
                                seed=s["seed"])
     store = GraphStore()
-    eng = SolverEngine(store, cfg, device=device)
+    eng = SolverEngine(store, config or Config(), device=device)
     warm = None
     if s["warm"]:
         warm = warmup_summary(eng, timed_warmup(eng, s["nodes"],
                                                 s["loops"])[1])
-    with counted_boxes(key, not s["async_dispatch"]) as seen:
+    with counted_boxes(key) as seen:
         fired, settled, settle_ms = stream(eng, store, g, s)
     rec = engine_record(key, eng, fired, seen)
     forced = [p for p in fired if p["injected"]]
@@ -424,8 +405,7 @@ def stream_row(key: str, device, config=None, **resize) -> dict:
               if forced and r["trigger"] == forced[0]["trigger"]]
     rec.update(
         nodes=s["nodes"], loops=s["loops"], every=s["every"],
-        async_dispatch=s["async_dispatch"], pace_ms=s["pace_ms"],
-        inject_at=s["inject_at"], warmup=warm, settle_wall_ms=settle_ms,
+        pace_ms=s["pace_ms"], inject_at=s["inject_at"], warmup=warm, settle_wall_ms=settle_ms,
         settled=settled,
         forced_trigger=forced[0]["trigger"] if forced else None,
         forced_escalation=landed[0] if landed else None,
@@ -443,7 +423,7 @@ def multiworld_row(key: str, device, config=None, **resize) -> dict:
                                seed=s["seed"])
     store = GraphStore()
     eng = SolverEngine(store, config or Config(), device=device)
-    with counted_boxes(key, True) as seen:
+    with counted_boxes(key) as seen:
         fired = multiworld(eng, store, g, s)
     walls = {r["trigger"]: r["trigger_wall_ms"] for r in eng.solve_stats
              if "trigger_wall_ms" in r}
@@ -470,7 +450,7 @@ def cover_row(side: str, device, config=None, **resize) -> dict:
     (nodes, loops), prop = COVER_WARMUP[side]
     n_warm, warm_s = timed_warmup(eng, nodes, loops, proportional=prop)
     key = f"cover_2k_4000:{side}"
-    with counted_boxes(key, True) as seen:
+    with counted_boxes(key) as seen:
         fired = feed(eng, store, g, s["every"])
     rec = engine_record(key, eng, fired, seen)
     rec.update(side=side, warmup=warmup_summary(eng, warm_s),
@@ -597,10 +577,6 @@ def cross_gates(records: dict) -> dict:
     """Gates across rows: `records` maps each process's row key to its
     records, one per round."""
     gates = {}
-    for a, b in SAME_CHI2:
-        if a in records and b in records:
-            chi2 = {r.get("final_chi2") for r in records[a] + records[b]}
-            gates[f"same_chi2:{a}:{b}"] = len(chi2) == 1
     sides = [records.get(f"cover_2k_4000:{s}") for s in "AB"]
     if all(sides):
         gates["cover_same_triggers"] = all(

@@ -57,8 +57,7 @@ Phases, one printed line each (or a few):
      and 38.81; certify.py);
   9. replay: a seeded 5,000-node stream with two kidnaps (three worlds
      merged by inter-world loop edges) through the CLI's `replay` with a
-     checkpoint, again with --async-dispatch (same final poses), then
-     `replay --load-dir` restoring the checkpoint;
+     checkpoint, then `replay --load-dir` restoring the checkpoint;
  10. serve: the port server on a Unix socket in a thread, on the bounded
      native store; a client streams 2,000 nodes, their loop edges and a
      kidnap/unkidnap pair, asks every query kind and shuts it down;
@@ -98,11 +97,10 @@ Phases, one printed line each (or a few):
      system on 8 shards, its solution's relative residual in the
      single-device reduced matvec below 1e-4, and the sharded halo matvec
      (K1) against the single-device reduced_matvec_t (K1); (d) phase 9's
-     stream through SolverEngine on 4 shards of the card with async
-     dispatch, after warmup(5000, 2500, proportional=False) of the
-     mesh's buckets (re-sharding every trigger, the full build, the
-     graphed solve on the worker thread, the write-back from the gathered
-     result) against the unmeshed engine of this run, warmed the same
+     stream through SolverEngine on 4 shards of the card, after
+     warmup(5000, 2500, proportional=False) of the mesh's buckets
+     (re-sharding every trigger, the full build, the graphed solve, the
+     write-back from the gathered result) against the unmeshed engine of this run, warmed the same
      way, in fp64: 0 captures on the mesh's trigger path, the same
      triggers and LM counts, poses within 1e-8 of their scale, and the
      trigger walls of both; (e) the phase-5 problem (fp32) on
@@ -1256,52 +1254,43 @@ def phase_replay(tmp: str, card: str) -> None:
     stream = os.path.join(tmp, "stream.json")
     info = make_stream(stream)
     every = str(info["events"] // 10)
-    finals = {}
-    for mode, extra in (("sync", []), ("async", ["--async-dispatch"])):
-        out = os.path.join(tmp, f"replay_{mode}.json")
-        ckpt = os.path.join(tmp, f"ckpt_{mode}")
-        path = f"replay-{mode}"
-        with counted(path):
-            t0 = time.perf_counter()
-            run_cli(["replay", "--input", stream, "--output", out,
-                     "--trigger-every", every, "--save-dir", ckpt,
-                     "--device", "cuda", *extra])
-            wall = time.perf_counter() - t0
-        sol = json.load(open(out))
-        stats = sol["solve_stats"]
-        rows = [r for r in stats if "trigger_wall_ms" in r]
-        bad = [r for r in rows if not r["final_cost"] <= r["initial_cost"]]
-        bad += [r for r in stats if r.get("background_escalation")
-                and not r.get("final_cost", math.inf)
-                <= r.get("initial_cost", -math.inf)]
-        if len(rows) < 5 or bad:
-            raise AssertionError(f"replay {mode}: {len(rows)} triggers; "
-                                 f"cost not lowered in {bad}")
-        saved = json.load(open(os.path.join(ckpt, "solved_posegraph.json")))
-        sets = {nd["setID_of_worldID"] for nd in saved["SolvedPoseGraph"]
-                if nd["worldID"] >= 0}
-        worlds = {nd["worldID"] for nd in saved["SolvedPoseGraph"]}
-        if len(sets) != 1 or not {0, 1, 2} <= worlds:
-            raise AssertionError(f"replay {mode}: worlds {worlds} end in "
-                                 f"sets {sets}, expected one set")
-        T = np.array([[float(v) for v in n["w_T_c"].split(";")[r].split(",")]
+    out = os.path.join(tmp, "replay.json")
+    ckpt = os.path.join(tmp, "ckpt")
+    with counted("replay"):
+        t0 = time.perf_counter()
+        run_cli(["replay", "--input", stream, "--output", out,
+                 "--trigger-every", every, "--save-dir", ckpt,
+                 "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    sol = json.load(open(out))
+    stats = sol["solve_stats"]
+    rows = [r for r in stats if "trigger_wall_ms" in r]
+    bad = [r for r in rows if not r["final_cost"] <= r["initial_cost"]]
+    bad += [r for r in stats if r.get("background_escalation")
+            and not r.get("final_cost", math.inf)
+            <= r.get("initial_cost", -math.inf)]
+    if len(rows) < 5 or bad:
+        raise AssertionError(f"replay: {len(rows)} triggers; "
+                             f"cost not lowered in {bad}")
+    saved = json.load(open(os.path.join(ckpt, "solved_posegraph.json")))
+    sets = {nd["setID_of_worldID"] for nd in saved["SolvedPoseGraph"]
+            if nd["worldID"] >= 0}
+    worlds = {nd["worldID"] for nd in saved["SolvedPoseGraph"]}
+    if len(sets) != 1 or not {0, 1, 2} <= worlds:
+        raise AssertionError(f"replay: worlds {worlds} end in sets {sets}, "
+                             f"expected one set")
+    final = np.array([[float(v) for v in n["w_T_c"].split(";")[r].split(",")]
                       for n in sol["nodes"] for r in range(3)])
-        finals[mode] = T
-        ms = [r["trigger_wall_ms"] for r in rows]
-        say("replay", mode=mode, triggers=len(rows),
-            escalations=sum(1 for r in stats
-                            if r.get("background_escalation")),
-            final_chi2=rows[-1]["final_cost"],
-            median_trigger_wall_ms=round(float(np.median(ms)), 3),
-            p90_trigger_wall_ms=round(float(np.percentile(ms, 90)), 3),
-            replay_wall_s=round(wall, 3),
-            launches=json.dumps(PATH_LAUNCHES[path], separators=(",", ":")),
-            card=repr(card))
-    diff = float(np.abs(finals["async"] - finals["sync"]).max())
-    scale = float(np.abs(finals["sync"]).max())
-    if not diff <= 1e-4 * scale:
-        raise AssertionError(f"async replay differs from sync by {diff} "
-                             f"(scale {scale})")
+    scale = float(np.abs(final).max())
+    ms = [r["trigger_wall_ms"] for r in rows]
+    say("replay", triggers=len(rows),
+        escalations=sum(1 for r in stats if r.get("background_escalation")),
+        final_chi2=rows[-1]["final_cost"],
+        median_trigger_wall_ms=round(float(np.median(ms)), 3),
+        p90_trigger_wall_ms=round(float(np.percentile(ms, 90)), 3),
+        replay_wall_s=round(wall, 3),
+        launches=json.dumps(PATH_LAUNCHES["replay"], separators=(",", ":")),
+        card=repr(card))
 
     # restore the checkpoint into a fresh pipeline; the continuation's
     # nodes queue behind the end-of-world mark the save wrote
@@ -1313,26 +1302,24 @@ def phase_replay(tmp: str, card: str) -> None:
     cont.save_as_json(cont_path)
     out = os.path.join(tmp, "replay_loaded.json")
     text = run_cli(["replay", "--input", cont_path, "--output", out,
-                    "--load-dir", os.path.join(tmp, "ckpt_sync"),
+                    "--load-dir", ckpt,
                     "--device", "cuda"])
     if "load_state_from_disk" not in text or "-> True" not in text:
         raise AssertionError(f"checkpoint did not re-load:\n{text}")
     # the restored map, composed, is the saved run's composed trajectory
     # (outside the kidnap dead zones, whose poses are not solved)
-    saved = json.load(open(os.path.join(tmp, "ckpt_sync",
-                                        "solved_posegraph.json")))
     live = np.array([nd["worldID"] >= 0 for nd in saved["SolvedPoseGraph"]])
     n0 = len(live)
     nodes = json.load(open(out))["nodes"]
     got = np.array([[float(r.split(",")[3]) for r in
                      nd["w_T_c"].split(";")[:3]] for nd in nodes[:n0]])
-    want = finals["sync"].reshape(-1, 3, 4)[:n0, :, 3]
+    want = final.reshape(-1, 3, 4)[:n0, :, 3]
     err = float(np.abs(got - want)[live].max())
     if not (err <= 1e-9 * scale and len(nodes) == n0 + 200):
         raise AssertionError(f"restored map: max |dt| {err}, "
                              f"{len(nodes)} nodes")
-    say("replay", async_vs_sync_max_abs_diff=diff, pose_scale=scale,
-        restored_nodes=n0, restored_max_abs_dt=err, card=repr(card))
+    say("replay", pose_scale=scale, restored_nodes=n0,
+        restored_max_abs_dt=err, card=repr(card))
 
 
 def phase_serve(dev, tmp: str, card: str, n: int = 2000) -> None:
@@ -1668,8 +1655,8 @@ def phase_mesh(dev, card: str) -> None:
 
 def replay_engine(rec, dev, every: int, mesh=None, warm=None,
                   path=None) -> tuple:
-    """Phase 14(d): `rec` replayed through a SolverEngine (on `mesh` with
-    async dispatch, else on `dev` synchronously), without the escalation
+    """Phase 14(d): `rec` replayed through a SolverEngine (on `mesh`, else
+    on `dev`), without the escalation
     ladder so that its rows fix its launches, and in fp64: in fp32 the two
     orders of summation flip an LM stop now and then, which moved poses by
     2e-4 of their scale on a 600-node version of the stream (CPU), where
@@ -1681,8 +1668,6 @@ def replay_engine(rec, dev, every: int, mesh=None, warm=None,
     cfg = dataclasses.replace(
         cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False,
                                         dtype="float64"),
-        stream=dataclasses.replace(cfg.stream,
-                                   async_dispatch=mesh is not None),
         mesh=dataclasses.replace(cfg.mesh,
                                  n_devices=len(mesh) if mesh else 1))
     store = store_mod.GraphStore(initial_capacity=rec.node_len)
@@ -1737,8 +1722,7 @@ def mesh_replay(dev, card: str) -> None:
                              f"LM {lm_1}, captures {captures}, max pose diff "
                              f"{diff} (scale {scale}), delta builds "
                              f"{rows[-1]['delta_builds']}")
-    say("mesh-replay", route="graphs", shards=4, dispatch="async",
-        dtype="float64", triggers=len(rows),
+    say("mesh-replay", route="graphs", shards=4, dtype="float64", triggers=len(rows),
         trigger_captures=sum(captures), warmed_buckets=len(ws),
         setup_and_warmup_s=round(total - wall, 3),
         capture_s_total=round(sum(r["capture_s"] for r in ws), 3),
@@ -1831,8 +1815,8 @@ class Solves(list):
 @contextlib.contextmanager
 def solves_seen():
     """Record every lm_solve that the engine calls on this thread (it looks
-    it up on ops.lm at each call): its trigger solves without async
-    dispatch, not a background escalation's. n_cap and e_cap are the box
+    it up on ops.lm at each call): its trigger solves, not a background
+    escalation's. n_cap and e_cap are the box
     the solve ran in, read as tests/test_engine.py's bucket-cover test
     reads them; ms is the wall time to the end of its device work (the
     card synchronised, where there is one). The
@@ -2438,8 +2422,7 @@ FULL_WARMUP = (5000, 10000)
 
 def graphs_engine(dev, card: str) -> None:
     """Phase 18 (c): phase 9's stream replayed through SolverEngine, fp32
-    at the product defaults without the escalation ladder and with the
-    trigger's solve on its own thread (no async dispatch), so that two
+    at the product defaults without the escalation ladder, so that two
     runs can be compared bit for bit: once with every solve eager, once
     graphed after warmup(5000, 10000, proportional=False) (the full
     product of buckets, every trigger in its exact bucket); the graphed
@@ -2452,8 +2435,7 @@ def graphs_engine(dev, card: str) -> None:
     every = info["events"] // 10
     cfg = Config()
     cfg = dataclasses.replace(
-        cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False),
-        stream=dataclasses.replace(cfg.stream, async_dispatch=False))
+        cfg, solver=dataclasses.replace(cfg.solver, adaptive_fp64=False))
 
     def engine():
         return SolverEngine(

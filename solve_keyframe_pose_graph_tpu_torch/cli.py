@@ -110,11 +110,6 @@ def _config_from_args(args) -> Config:
         cfg = dataclasses.replace(
             cfg, solver=dataclasses.replace(
                 cfg.solver, max_lm_iterations=args.max_iters))
-    if getattr(args, "async_dispatch", False):
-        import dataclasses
-        cfg = dataclasses.replace(
-            cfg, stream=dataclasses.replace(
-                cfg.stream, async_dispatch=True))
     return cfg
 
 
@@ -276,7 +271,7 @@ def replay_events(rec, store, eng, cmp_, trigger_every: int
         if n_ev % trigger_every == 0 and eng.trigger():
             n_solves += 1
             cmp_.assemble()
-    eng.drain()          # barrier: async solve + background escalation
+    eng.drain()          # barrier: background escalation
     eng.trigger()        # settle edges that accumulated while busy
     eng.drain()
     return len(events), n_solves
@@ -383,10 +378,6 @@ def main(argv=None):
                         "worldID (Composer.cpp:285)")
     p.add_argument("--native", action="store_true",
                    help="require the C++ store core (default: auto)")
-    p.add_argument("--async-dispatch", dest="async_dispatch",
-                   action="store_true",
-                   help="overlap the host problem-build with the in-flight "
-                        "device solve (stream.async_dispatch)")
     p.add_argument("--device", default="cuda",
                    help="device the engine solves on (cuda, cuda:N or cpu)")
     p.set_defaults(fn=cmd_replay)
@@ -404,10 +395,6 @@ def main(argv=None):
                         "size before serving (nonzero: on; checked against "
                         "the node ceiling)")
     p.add_argument("--warmup-edges", type=int, default=0)
-    p.add_argument("--async-dispatch", dest="async_dispatch",
-                   action="store_true",
-                   help="overlap the host problem-build with the in-flight "
-                        "device solve (stream.async_dispatch)")
     p.add_argument("--device", default="cuda",
                    help="device the engine solves on (cuda, cuda:N or cpu)")
     p.set_defaults(fn=cmd_serve)

@@ -369,7 +369,7 @@ class Composer:
     def save_state_to_disk(self, save_dir: str) -> str:
         store, eng = self.store, self.engine
         if hasattr(eng, "drain"):
-            eng.drain()          # barrier for an in-flight async solve
+            eng.drain()          # barrier for a background escalation
         os.makedirs(save_dir, exist_ok=True)
         # force end-of-world so a future session starts a fresh world
         # (Composer.cpp:969-975)

@@ -10,8 +10,10 @@ trigger poll at :1257, 30k-node capacity at :17-25, switch init 0.99 at
 reproducible from its config.
 
 Fields that only the JAX package reads (band_impl, loop_impl,
-io.compile_cache_dir, mesh.axis_name) are kept so that a config file loads
-in both; the port ignores them. mesh.n_devices > 1 solves over a mesh of
+io.compile_cache_dir, mesh.axis_name, stream.async_dispatch) are kept so
+that a config file loads in both; the port ignores them (its trigger
+solves and writes back before it returns, to the same answers as the JAX
+package's async dispatch). mesh.n_devices > 1 solves over a mesh of
 that many shards (parallel/; solver/engine.py): that many cards on the
 card, or CPU shards on the CPU, and never fewer.
 """
@@ -170,15 +172,7 @@ class StreamConfig:
                                         # longest wait of SolverEngine.run,
                                         # which a loop edge's append ends
     assembler_hz: float = 30.0          # Composer.cpp:10 (30 Hz)
-    # Leave the device solve of trigger N in flight instead of blocking on
-    # it: the result is collected at the START of trigger N+1 (or by
-    # engine.drain()). Because that collect runs before anything else in
-    # trigger N+1, the overlap window covers the host ingest/compose work
-    # BETWEEN triggers, not trigger N+1's own problem build — its initial
-    # guesses read post-N opt values, exactly as in sync mode. Pays off
-    # when ingest paces slower than the solve (the host returns to
-    # ingesting immediately); a no-op in tight replay loops.
-    async_dispatch: bool = False
+    async_dispatch: bool = False        # the JAX package's; ignored here
     # Run the adaptive-precision escalated re-solve in a BACKGROUND thread:
     # the trigger serves its fp32/distressed result immediately (the
     # reference's solver loop never blocks the output pipeline — Composer

@@ -144,7 +144,7 @@ def count_launch(wrapper, entry: str) -> None:
     tally. A launch in a capture must have gone into the graph: one on a
     stream that is not capturing ran once, now, and raises rather than be
     counted at every replay. The counters' read-modify-write runs under a
-    lock: the trigger, async and escalation threads all launch kernels."""
+    lock: the trigger, warmup and escalation threads all launch kernels."""
     tally = getattr(_tls, "tally", None)
     if tally is not None:
         if not torch.cuda.is_current_stream_capturing():

@@ -13,9 +13,9 @@ plus 6x6 multiply-adds (kernel K1 on the card, ops/band_matvec.py). Loop
 edges use gathers and a row scatter-add in a fixed order: a segment sum
 over the live edge rows grouped by node (scatter_loop_rows, with the
 grouping built once per Problem), not `index_add_`, whose atomics on CUDA
-make sums differ run to run. So a solve on the card is reproducible, which
-the async-vs-sync replay check relies on. The other scatters here hit
-distinct rows, or add exact zeros, so their sums need no fixed order.
+make sums differ run to run. So a solve on the card is reproducible run to
+run. The other scatters here hit distinct rows, or add exact zeros, so
+their sums need no fixed order.
 
 Not ported: the reference's TPU loop-matvec variants (sorted, tiled and
 one-hot forms, gn.py:611-993) exist to feed the TPU's matrix unit and the

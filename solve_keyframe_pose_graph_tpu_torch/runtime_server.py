@@ -117,7 +117,7 @@ class PoseGraphServer:
         under "phases" the engine's time by phase (PhaseTimer.snapshot:
         each part of the triggers so far, world_mapping, first_contact,
         initial_guesses, priors, device_solve with prepare, problem_build
-        and to_host, write_back, the lock waits, collect and async_solve)."""
+        and to_host, write_back and the lock waits)."""
         eng = self.engine
         return {"ingest": dict(self.ingest_trace),
                 "assembler": dict(self.composer.trace),
@@ -296,7 +296,7 @@ class PoseGraphServer:
         solver.join(timeout=30)
         if solver_error:
             raise solver_error[0]
-        self.engine.drain()       # barrier: async solve + bg escalation
+        self.engine.drain()       # barrier: background escalation
         self.engine.trigger()     # settle edges that accumulated while busy
         self.engine.drain()
         if self.save_dir:

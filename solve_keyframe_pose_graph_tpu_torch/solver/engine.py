@@ -13,26 +13,25 @@ engine:
   6. one LM solve (ops/lm.py) on the engine's device, then write-back.
 
 Most of this is host numpy, carried over as it is. The solve and its one
-device->host copy run under the engine's device lock. With
-stream.async_dispatch they run on one worker thread and the result is
-collected at the start of the next trigger or by drain(). A solve with the
-fp32 distress signature is re-solved on the fp64 ladder (ops/lm.py
-escalate_resolve): in a background thread (stream.background_escalation,
-the default), whose result is dropped if a world merge landed meanwhile,
-or inline in the trigger. The background rung takes the device lock around
-each of its device steps, so trigger solves wait at most one of them. A
-trigger that made a first contact between worlds is not escalated: its
-start places a world by one loop edge's observation, metres off where that
-edge is an outlier, and the rejections of a solve from such a start are
-the LM's radius search, which the fp64 rung repeats at the same cost (on
-the card, a 4.5k-node merge re-solved on the host rung ended 4e-6 from the
-fp32 cost, itself unconverged after 10 iterations), while the triggers it
-holds back wait for it for seconds.
+device->host copy run under the engine's device lock, on the trigger's
+thread: a trigger that fires has written back and appended its solve_stats
+row when it returns. A solve with the fp32 distress signature is re-solved
+on the fp64 ladder (ops/lm.py escalate_resolve): in a background thread
+(stream.background_escalation, the default), whose result is dropped if a
+world merge landed meanwhile, or inline in the trigger. The background rung
+takes the device lock around each of its device steps, so trigger solves
+wait at most one of them. A trigger that made a first contact between
+worlds is not escalated: its start places a world by one loop edge's
+observation, metres off where that edge is an outlier, and the rejections
+of a solve from such a start are the LM's radius search, which the fp64
+rung repeats at the same cost (on the card, a 4.5k-node merge re-solved on
+the host rung ended 4e-6 from the fp32 cost, itself unconverged after 10
+iterations), while the triggers it holds back wait for it for seconds.
 
-Threads and CUDA streams: every worker thread runs its device work on the
-stream that was current on the submitting thread, so a problem built on one
-thread is consumed in order on another; every result crosses to the host by
-a copy that waits for its kernels.
+Threads and CUDA streams: a background thread (escalation, warmup) runs
+its device work on the stream that was current on the thread that started
+it, so a problem built on the trigger's thread is consumed in order on it;
+every result crosses to the host by a copy that waits for its kernels.
 
 The trigger's Problem comes from solver/incremental.py (stream.
 incremental_build, the default): the observation leaves stay on the device
@@ -98,9 +97,8 @@ start, when it reads the store's edge count. Its phases are spans in it,
 on the monotonic clock: world_mapping, first_contact, initial_guesses,
 priors, device_solve (device_lock_wait, prepare with problem_build, and
 on the card the solve's launch and result_wait, to_host), write_back;
-state_lock_wait and device_lock_wait at each acquisition of those locks;
-an async solve's under async_solve on its worker and collect. Its
-solve_stats row gets t_start, t_end, spans_ms, the summed lock_wait_ms,
+state_lock_wait and device_lock_wait at each acquisition of those locks.
+Its solve_stats row gets t_start, t_end, spans_ms, the summed lock_wait_ms,
 launch_ms and result_wait_ms (None where no such span ran), poll_sleep_s
 (run()'s waits so far, in seconds), poll_wakes (those of them that ended
 before the poll's period) and its new edges' waits in the store
@@ -122,7 +120,6 @@ import logging
 import math
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -285,20 +282,15 @@ class SolverEngine:
         # (n_cap, e_cap, dtype) buckets warmed or dispatched in, for the
         # bucket cover (see the module note); under state_lock
         self._warmed_buckets: set = set()
-        # serializes device work between trigger solves, the async worker
-        # and a background escalation's device steps
+        # serializes device work between trigger solves, the warmup and a
+        # background escalation's device steps
         self._device_lock = threading.Lock()
-        # in-flight async solve (stream.async_dispatch): (future, problem,
-        # kw, node_len, edge_len, node_worlds, trigger id, its Record,
-        # row entries); popped under state_lock by collect()
-        self._pending = None
-        self._executor: Optional[ThreadPoolExecutor] = None
         # in-flight background escalated re-solve; joined by drain()
         self._bg_thread: Optional[threading.Thread] = None
         self._warmup_thread: Optional[threading.Thread] = None
         self._host_rung_thread: Optional[threading.Thread] = None
         # a kernel or device failure on a background thread, raised on the
-        # next collect / drain / warmup_join
+        # next trigger / drain / warmup_join
         self._bg_error: Optional[BaseException] = None
 
     # ------------------------------------------------------------------
@@ -345,12 +337,10 @@ class SolverEngine:
     # ------------------------------------------------------------------
 
     def trigger(self) -> bool:
-        """One poll of the solver loop. Returns True if a solve ran (or,
-        with async dispatch, was dispatched)."""
+        """One poll of the solver loop. Returns True if a solve ran; its
+        write-back and solve_stats row have then landed."""
         store = self.store
-        # a previous async solve's write-back must land before this
-        # trigger's initial guesses read the opt state
-        self.collect()
+        self._raise_bg_error()
         # edges first: nodes are appended before the edges that reference
         # them, so every edge < edge_len has endpoints < node_len
         edge_len = store.edge_len
@@ -468,26 +458,11 @@ class SolverEngine:
                 problem, kw, build = self._prepare_solve(
                     node_len, edge_len, node_worlds, prior_idx, prior_q,
                     prior_t, prior_w)
-            build = dict(build, **taken)
-            if self.config.stream.async_dispatch:
-                # the solve and its copy to the host run on the worker; the
-                # host goes back to ingest and compose until the next
-                # trigger (or drain) collects it
-                if self._executor is None:
-                    self._executor = ThreadPoolExecutor(
-                        max_workers=1, thread_name_prefix="kpg-async")
-                fut = self._executor.submit(
-                    self._solve_async, rec, problem, kw, node_len, edge_len,
-                    _on_stream(self.device))
-                with self._locked(self.state_lock, "state_lock_wait"):
-                    self._pending = (fut, problem, kw, node_len, edge_len,
-                                     node_worlds, tid, rec, build)
-                self.status = 3
-                return True
             res, captures = self._solve_to_host(problem, kw, node_len,
                                                 edge_len)
         self._finish_solve(res, problem, kw, node_len, edge_len, node_worlds,
-                           tid, rec, dict(build, trigger_captures=captures))
+                           tid, rec, dict(build, **taken,
+                                          trigger_captures=captures))
         return True
 
     def _edge_waits(self, t_start: float, edge_len: int) -> dict:
@@ -534,12 +509,10 @@ class SolverEngine:
         return self.timer.counts.get("poll_wake", 0)
 
     def _solve_to_host(self, problem: Problem, kw: dict, node_len: int,
-                       edge_len: int, stream_ctx=contextlib.nullcontext
-                       ) -> tuple[lm_ops.LMResult, int]:
+                       edge_len: int) -> tuple[lm_ops.LMResult, int]:
         """The solve's host result, and the graph captures it took (a
         bucket that warmup() had not captured)."""
-        with stream_ctx(), self._locked(self._device_lock,
-                                        "device_lock_wait"):
+        with self._locked(self._device_lock, "device_lock_wait"):
             before = graphs.captures_on_this_thread()
             res = lm_ops.lm_solve(problem, **kw)
             with self.timer.phase("to_host"):
@@ -550,44 +523,15 @@ class SolverEngine:
                                       self.config.solver.dtype))
         return res, captures
 
-    def _solve_async(self, rec: timing.Record, *args) -> tuple:
-        """_solve_to_host on the async worker, its spans going into the
-        dispatching trigger's Record under async_solve."""
-        with timing.recording(rec), self.timer.phase("async_solve"):
-            return self._solve_to_host(*args)
-
-    def collect(self) -> bool:
-        """Collect an in-flight async solve (waits for it) and write it
-        back. Returns True if one was pending. The pending entry is popped
-        under state_lock: the solver thread's trigger and a server thread's
-        drain may race here, and only one of them may finish it."""
-        self._raise_bg_error()
-        with self.state_lock:
-            pending, self._pending = self._pending, None
-        if pending is None:
-            return False
-        (fut, problem, kw, node_len, edge_len, node_worlds, tid, rec,
-         build) = pending
-        with timing.recording(rec):
-            with self.timer.phase("collect"):
-                res, captures = fut.result()
-            self._finish_solve(res, problem, kw, node_len, edge_len,
-                               node_worlds, tid, rec,
-                               dict(build, trigger_captures=captures))
-        return True
-
-    def drain(self) -> bool:
-        """Checkpoint / shutdown / batch barrier: collect an in-flight async
-        solve and join a background escalation, so its write-back has
-        landed when this returns. Returns True if an async solve was
-        pending."""
-        got = self.collect()
+    def drain(self) -> None:
+        """Checkpoint / shutdown / batch barrier: join a background
+        escalation, so that its write-back has landed when this returns,
+        and raise a background thread's stored failure."""
         t = self._bg_thread
         if t is not None:
             t.join()
             self._bg_thread = None
         self._raise_bg_error()
-        return got
 
     def _raise_bg_error(self) -> None:
         """Raise, once, a kernel or device failure that a background thread

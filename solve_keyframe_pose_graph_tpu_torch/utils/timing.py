@@ -12,9 +12,9 @@ Each phase is also a span, stamped on CLOCK_MONOTONIC (time.monotonic, the
 clock the benchmark's stamps use). span(name) is a phase that keeps no
 totals, for a module that holds no PhaseTimer (ops/graphs.py).
 Spans nest per thread: a span's path is its parent's path, "/", its name.
-While a Record is open on a thread (recording(), the engine's trigger, and
-its async worker for the same Record), every span that thread closes goes
-into it as (path, start, end). While a torch profiler is recording, each
+While a Record is open on a thread (recording(), the engine's trigger),
+every span that thread closes goes into it as (path, start, end): a Record
+holds one thread's spans. While a torch profiler is recording, each
 span also opens record_function("kpg." + name), so that it sits in the
 profile beside the kernels it launched, on the profile's own clock. With
 no Record and no profiler a span costs two clock reads and a check.
@@ -36,8 +36,8 @@ _tls = threading.local()      # per thread: the open Record, the span path
 
 
 class Record:
-    """The spans of one unit of work (a trigger), from every thread that
-    worked on it, on the monotonic clock from t_start."""
+    """The spans of one unit of work (a trigger), from the one thread that
+    ran it, on the monotonic clock from t_start."""
 
     def __init__(self, t_start: float):
         self.t_start = t_start
@@ -115,8 +115,8 @@ def span(name: str) -> _Span:
 
 class PhaseTimer:
     """Totals, counts and the last duration per phase name. The engine's
-    threads (its solver loop, async worker and background escalation)
-    share one, so each update and snapshot takes its lock."""
+    threads (its solver loop, warmup and background escalation) and the
+    status query share one, so each update and snapshot takes its lock."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)

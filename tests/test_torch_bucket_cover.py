@@ -320,8 +320,7 @@ def test_a_box_that_shrinks_is_a_full_build(boxes):
         cfg = parity_config()
         cfg = tconfig.Config(
             solver=cfg.solver, capacity=cfg.capacity, io=cfg.io,
-            stream=tconfig.StreamConfig(async_dispatch=False,
-                                        incremental_build=incremental))
+            stream=tconfig.StreamConfig(incremental_build=incremental))
         store = GraphStore()
         eng = SolverEngine(store, cfg, device="cpu")
         eng._warmed_buckets.add((512, 128, "float64"))

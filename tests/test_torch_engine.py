@@ -1,6 +1,7 @@
 """PyTorch port: the streaming engine's synchronous trigger path, replaying
 the trigger-gating, streaming-growth, multi-world-kidnap, fp64-escalation
-and async-dispatch scenarios of tests/test_engine.py through both engines.
+and async-dispatch scenarios of tests/test_engine.py through both engines
+(the port runs an async-dispatch config on its one, synchronous path).
 
 Both run on the CPU with the same solver settings; the JAX engine is set to
 the port's formulation (scatter loop matvec, AoS band build, the full
@@ -10,6 +11,7 @@ poses must agree as closely. Every optimized pose must agree to 1e-8 of its
 scale, and every trigger must fire in both."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -35,7 +37,7 @@ def _config(c=tconfig):
     return c.Config(
         solver=c.SolverConfig(dtype="float64", adaptive_fp64=False,
                               loop_impl="scatter", band_impl="aos"),
-        stream=c.StreamConfig(async_dispatch=False, incremental_build=False),
+        stream=c.StreamConfig(incremental_build=False),
         # small first buckets keep both packages' CPU solves short
         capacity=c.CapacityConfig(initial_nodes=128, initial_edges=32),
         io=c.IOConfig(compile_cache_dir=""))
@@ -101,7 +103,8 @@ def test_trigger_gating_matches_reference():
     b.mark_as_unkidnapped(T0 + 6 * S)
     assert b.trigger()
     b.check_poses()
-    assert not b.port.collect() and not b.port.drain()
+    b.port.drain()
+    assert not b.port.trigger()
 
 
 def test_streaming_growth_matches_reference():
@@ -257,10 +260,13 @@ def test_background_escalation_serves_fp32_then_lands_as_reference():
     _assert_escalated_poses_match(b)
 
 
-def test_async_dispatch_matches_sync_and_reference():
-    """tests/test_engine.py test_async_dispatch_pipeline_matches_sync with
-    the port engine in both modes, and the JAX engine's async run as the
-    reference: after the final drain all land at the same fixed point."""
+def test_a_config_asking_for_async_dispatch_matches_the_jax_async_run():
+    """tests/test_engine.py test_async_dispatch_pipeline_matches_sync: a
+    port config file that sets stream.async_dispatch loads, and its engine
+    solves as the default one does, each firing trigger having written
+    back and appended its row when it returns; the JAX engine's async run
+    is the reference. After the final drain all land at the same fixed
+    point."""
     def run(eng, store):
         rng = np.random.default_rng(5)
         for i in range(120):
@@ -272,29 +278,37 @@ def test_async_dispatch_matches_sync_and_reference():
                     T0 + i * S, T0 + j * S, nse3.quat_identity(),
                     np.asarray(store.node_pose(i)[1])
                     - np.asarray(store.node_pose(j)[1]), 1.0)
+                rows = len(eng.solve_stats)
                 assert eng.trigger()
+                if isinstance(eng, SolverEngine):
+                    assert len(eng.solve_stats) == rows + 1
+                    assert eng.solve_stats[-1]["trigger"] == eng.trigger_id
+                    assert eng.solved_until == i
         eng.drain()
         eng.trigger()
         eng.drain()
         return eng
 
-    def cfg(async_mode, c=tconfig):
-        cf = _config(c)
-        return dataclasses.replace(cf, stream=dataclasses.replace(
-            cf.stream, async_dispatch=async_mode))
+    d = json.loads(_config().to_json())
+    d["stream"]["async_dispatch"] = True
+    asked = tconfig.Config.from_json(json.dumps(d))
+    assert asked.stream.async_dispatch
+    ref_cfg = _config(jconfig)
+    ref_cfg = dataclasses.replace(ref_cfg, stream=dataclasses.replace(
+        ref_cfg.stream, async_dispatch=True))
 
     s_sync, s_async, s_ref = GraphStore(), GraphStore(), JaxStore()
-    e_sync = run(SolverEngine(s_sync, cfg(False), device="cpu"), s_sync)
-    e_async = run(SolverEngine(s_async, cfg(True), device="cpu"), s_async)
-    e_ref = run(JaxEngine(s_ref, cfg(True, jconfig)), s_ref)
+    e_sync = run(SolverEngine(s_sync, _config(), device="cpu"), s_sync)
+    e_async = run(SolverEngine(s_async, asked, device="cpu"), s_async)
+    e_ref = run(JaxEngine(s_ref, ref_cfg), s_ref)
     assert e_async.solved_until == e_sync.solved_until == e_ref.solved_until
     su = e_sync.solved_until + 1
     np.testing.assert_allclose(e_async._opt_t[:su], e_sync._opt_t[:su],
                                atol=1e-8)
     np.testing.assert_allclose(e_async._opt_t[:su], e_ref._opt_t[:su],
                                atol=1e-8)
-    assert len(e_async.solve_stats) == len(e_ref.solve_stats)
-    assert not e_async.collect()
+    assert len(e_async.solve_stats) == len(e_ref.solve_stats) \
+        == len(e_sync.solve_stats)
 
 
 def _port_fp32_stream(background: bool, fp64_backend: str, n: int = 40):
@@ -347,10 +361,50 @@ def test_background_escalation_failure(monkeypatch, kind):
             eng.drain()
     else:
         eng.drain()
-    assert not eng.drain()                      # raised once, then clear
+    eng.drain()                                 # raised once, then clear
     row = [r for r in eng.solve_stats if r.get("background_escalation")][-1]
     assert "escalation_error" in row
     np.testing.assert_array_equal(eng._opt_t[:40], served)
+
+
+def test_a_background_device_error_is_raised_by_the_next_trigger(
+        monkeypatch):
+    """A device failure of a background escalation is raised by the
+    solver loop's next trigger, before it reads the store, and only once:
+    a later drain() does not raise it again, and the trigger after it
+    solves the edges that came meanwhile."""
+    from solve_keyframe_pose_graph_tpu_torch.ops import _kernels
+    from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
+
+    real, calls = lm_ops.escalate_resolve, []
+
+    def failing_once(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise _kernels.KernelError("CUDA kernel gj_inv failed to launch")
+        return real(*a, **k)
+
+    monkeypatch.setattr(lm_ops, "escalate_resolve", failing_once)
+    eng = _port_fp32_stream(True, "tpu")
+    assert eng.trigger()
+    eng._bg_thread.join()
+    # the failed re-solve's row may land before or after the trigger's
+    row, failed = (next(r for r in eng.solve_stats if key in r)
+                   for key in ("fp64_escalated", "escalation_error"))
+    assert row["fp64_escalated"] == "pending"
+    assert "gj_inv" in failed["escalation_error"]
+    store = eng.store
+    store.add_loop_edge(T0 + 35 * S, T0 + 10 * S, nse3.quat_identity(),
+                        np.asarray(store.node_pose(35)[1])
+                        - np.asarray(store.node_pose(10)[1]), 1.0)
+    rows = len(eng.solve_stats)
+    with pytest.raises(_kernels.KernelError, match="gj_inv"):
+        eng.trigger()
+    assert len(eng.solve_stats) == rows and eng.prev_edge_len == 1
+    eng.drain()                                 # raised once, then clear
+    assert eng.trigger()
+    assert eng.prev_edge_len == 2
+    eng.drain()
 
 
 def test_background_warmup_failure_is_raised_by_join(monkeypatch):

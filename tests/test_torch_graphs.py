@@ -407,7 +407,6 @@ def _engine_config():
     return tconfig.Config(
         solver=tconfig.SolverConfig(dtype="float32", adaptive_fp64=False,
                                     max_lm_iterations=3),
-        stream=tconfig.StreamConfig(async_dispatch=False),
         capacity=tconfig.CapacityConfig(initial_nodes=128, initial_edges=32))
 
 

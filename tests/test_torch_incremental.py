@@ -4,8 +4,8 @@ the engine that uses it.
 The builder must return, at every step of a growing stream, a Problem
 bitwise equal to the port's from-scratch build_problem_np, and field by field
 equal to the JAX package's IncrementalBuilder. It must never change a
-Problem it returned earlier: an async solve, a background escalation or a
-repacked view may still be reading it. Through the engine, incremental and
+Problem it returned earlier: a background escalation or a repacked view
+may still be reading it. Through the engine, incremental and
 full builds give bitwise the same poses, and the incremental port engine
 agrees with the incremental JAX engine as the full-build engines do."""
 

@@ -203,8 +203,7 @@ def test_engine_on_a_mesh_takes_the_same_rung():
             solver=tconfig.SolverConfig(escalate_rejects=0,
                                         fp64_backend="tpu",
                                         max_lm_iterations=4),
-            stream=tconfig.StreamConfig(async_dispatch=False,
-                                        background_escalation=False),
+            stream=tconfig.StreamConfig(background_escalation=False),
             capacity=tconfig.CapacityConfig(initial_nodes=64,
                                             initial_edges=8),
             mesh=tconfig.MeshConfig(n_devices=P))

@@ -176,7 +176,6 @@ def _config(n_devices):
     return c.Config(
         solver=c.SolverConfig(dtype="float64", adaptive_fp64=False,
                               max_lm_iterations=5),
-        stream=c.StreamConfig(async_dispatch=False),
         capacity=c.CapacityConfig(initial_nodes=128, initial_edges=32),
         mesh=c.MeshConfig(n_devices=n_devices))
 

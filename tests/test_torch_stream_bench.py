@@ -215,14 +215,14 @@ def test_multiworld_feed_makes_the_reference_calls():
 
 def test_row_keys_and_specs_match_run_baseline():
     assert list(bst.ROWS) == [
-        "startup_10k", "streaming_2k_400", "streaming_2k_400_async",
+        "startup_10k", "streaming_2k_400",
         "streaming_2k_400_warm", "streaming_10k_2000_warm",
-        "streaming_2k_400_warm_paced", "streaming_2k_400_warm_paced_async",
+        "streaming_2k_400_warm_paced",
         "streaming_30k_3000_warm_paced_distress",
         "streaming_2k_400_warm_paced_distress", "multiworld_1500",
         "cover_2k_4000"]
     assert bst.ONLY_KEYS == (
-        "startup", "streaming", "streaming_async", "streaming_warm",
+        "startup", "streaming", "streaming_warm",
         "streaming_10k", "streaming_paced", "streaming_30k",
         "streaming_distress", "multiworld", "cover")
     s = bst.ROWS["streaming_30k_3000_warm_paced_distress"]
@@ -339,10 +339,10 @@ def test_wall_statistics_and_spread():
         median=2.0, p25=1.5, p75=2.5, min=1.0, max=3.0, all=[3.0, 1.0, 2.0])
     assert bst.spread([None]) is None
     assert bst.row_key(2000, 400) == "streaming_2k_400"
-    assert bst.row_key(30000, 3000, True, 2000.0, False, 5) == \
+    assert bst.row_key(30000, 3000, True, 2000.0, 5) == \
         "streaming_30k_3000_warm_paced_distress"
-    assert bst.row_key(2000, 400, True, 150.0, True) == \
-        "streaming_2k_400_warm_paced_async"
+    assert bst.row_key(2000, 400, True, 150.0) == \
+        "streaming_2k_400_warm_paced"
 
 
 def test_gates():
@@ -380,13 +380,14 @@ def test_gates():
     assert not bst.row_gates("multiworld_1500", dict(mw, sets=2))["worlds"]
     assert bst.row_gates("streaming_2k_400", {"error": "exit 1"}) == {
         "ran": False}
-    # the sync and async rows of one configuration, bit for bit
+    # the cover row's two sides fire the same triggers; streaming rows
+    # have no gate across rows
+    side = _stream_rec(boxes=[[100, 20, [128, 32], [256, 32]]])
     recs = {"streaming_2k_400": [_stream_rec(final_chi2=0.14265)] * 3,
-            "streaming_2k_400_async": [_stream_rec(final_chi2=0.14265)]}
-    assert bst.cross_gates(recs) == {
-        "same_chi2:streaming_2k_400:streaming_2k_400_async": True}
-    recs["streaming_2k_400_async"] = [_stream_rec(
-        final_chi2=np.nextafter(0.14265, 1.0))]
+            "cover_2k_4000:A": [side], "cover_2k_4000:B": [side]}
+    assert bst.cross_gates(recs) == {"cover_same_triggers": True}
+    recs["cover_2k_4000:B"] = [_stream_rec(
+        boxes=[[101, 20, [128, 32], [128, 32]]])]
     assert not any(bst.cross_gates(recs).values())
 
 

@@ -125,18 +125,16 @@ def _children(spans, parent):
             and (not parent or p.startswith(parent + "/"))]
 
 
-def _check_nesting(row, one_thread=True):
-    """Every span inside [t_start, t_end], and no span's children summing
-    past it; with one_thread, the top level's spans not past the wall
-    either (an async solve's run on its worker beside the solver thread's
-    collect)."""
+def _check_nesting(row):
+    """Every span inside [t_start, t_end], and no span's children, nor the
+    top level's spans, summing past it."""
     wall = 1000.0 * (row["t_end"] - row["t_start"])
     assert row["trigger_wall_ms"] == pytest.approx(wall)
     spans = row["spans_ms"]
     for path, (at, ms) in spans.items():
         assert at >= 0.0 and ms >= 0.0, path
         assert at + ms <= wall + 1e-6, path
-    assert not one_thread or sum(_children(spans, "")) <= wall + 1e-6
+    assert sum(_children(spans, "")) <= wall + 1e-6
     for path, (_, ms) in spans.items():
         assert sum(_children(spans, path)) <= ms + 1e-6, path
     json.dumps(row)
@@ -161,23 +159,6 @@ def test_a_rows_spans_nest_inside_the_trigger():
     assert row["launch_ms"] is None and row["result_wait_ms"] is None
     assert row["lock_wait_ms"] >= 0.0
     assert eng.timer.counts["trigger_total"] == 1
-
-
-def test_an_async_solves_spans_ride_into_its_row():
-    store, eng = _engine(async_dispatch=True)
-    _nodes(store)
-    for k in range(4):
-        _edge(store, k)
-    assert eng.trigger()
-    assert not eng.solve_stats
-    assert eng.drain()
-    row = eng.solve_stats[-1]
-    spans = row["spans_ms"]
-    for path in ("device_solve/prepare", "async_solve",
-                 "async_solve/device_lock_wait", "async_solve/to_host",
-                 "collect", "write_back"):
-        assert path in spans, path
-    _check_nesting(row, one_thread=False)
 
 
 def test_lock_wait_counts_a_held_state_lock():

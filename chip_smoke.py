@@ -23,6 +23,19 @@ Phases, one printed line each (or a few):
      of a 2048 and an 8192 batch read in place: equal to the contiguous
      call, and best_inv hands the view's own pointer to one launch,
      allocating nothing beyond the output;
+  4b. precond: the preconditioner apply's kernels (csrc/bcr_apply.cu)
+     against their plain twin on the main path's operands (the circle
+     graph's reduced system at its start) at the 5k and 30k buckets, at
+     odometry fanout 5 (the product's, d = 30) and 1 (d = 6), fp32 and
+     fp64, bcr_levels 2 (the product's), 0, 1 and None, with and without
+     the coarse term, the result row-major and node-major (the mesh's),
+     each apply's launches as launches_per_apply says; at fanout 5,
+     bcr_levels 2 and row-major the time per apply (by events, and replayed
+     from a CUDA graph as a solve runs it, also after a read that evicts
+     the L2 cache) beside the factor's bytes bound and the plain twin's;
+     then a graphed 5k/10k product solve and its mixed rung, each
+     launching the apply's fp32 entry points once per CG and LM
+     iteration;
   5. the port's main path: one lm_solve at the product defaults on the
      5,000-node / 10,000-loop-edge circle graph (the bench graph), with both
      kernels' launch counts, chi^2 (also re-evaluated in fp64) against the
@@ -198,7 +211,9 @@ the code fixes a path's launches by its LM and CG counts, they must match
 (expected_launches, solve_launches, ladder_launches: K1 once per CG
 iteration that ran on a graphed solve, one card's or a one-card mesh's
 (once per shard), and per CG iteration of the cap on an eager one (the
-eager references, a mesh over distinct cards)). Then a JSON line with each kernel's
+eager references, a mesh over distinct cards); the preconditioner
+apply's launches_per_apply once per CG and per LM iteration, once per
+card on a mesh, once per shard in pcg_sharded). Then a JSON line with each kernel's
 numbers (launches summed over those paths, and by path), the card line
 again, and last {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero before that last line; there is no CPU fallback.
@@ -211,6 +226,7 @@ import contextlib
 import dataclasses
 import functools
 import io
+import itertools
 import json
 import math
 import os
@@ -232,6 +248,7 @@ from solve_keyframe_pose_graph_tpu_torch.graph import (
     messages, native, store as store_mod, synthetic,
 )
 from solve_keyframe_pose_graph_tpu_torch.ops import _kernels, band_matvec, gn
+from solve_keyframe_pose_graph_tpu_torch.ops import bcr_apply
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import graph_loops, graphs
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
@@ -268,7 +285,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # the two bench instances of phase 8 (5,000 nodes, 10,000 loop edges)
 BENCH = ("bench_seed0", "bench_seed1")
 QUALITY = 0.02             # the quality bar: within 2% of the reference
-WRAPPERS = {"band_matvec": band_matvec.band_matvec, "gj_inv": smallinv.gj_inv}
+WRAPPERS = {"band_matvec": band_matvec.band_matvec, "gj_inv": smallinv.gj_inv,
+            "precond_apply": bcr_apply.precond_apply}
+# the wrapper that counts each C entry point's launches, by entry prefix
+ENTRY_WRAPPER = {"kpg_band_matvec_": "band_matvec", "kpg_gj_inv_": "gj_inv",
+                 "kpg_bcr_apply_": "precond_apply"}
+# launches of one preconditioner application at PRODUCT (bcr_levels 2): two
+# per reduction level and the coarse aggregate sums; band*coarse's two-grid
+# applies the band part alone, once
+PER_APPLY = 2 * PRODUCT["bcr_levels"] + 1
+PER_APPLY_TWO_GRID = 2 * PRODUCT["bcr_levels"]
 PATH_LAUNCHES: dict = {}   # path -> {kernel: launches in that path's run}
 PATH_WARMUP: dict = {}     # path -> {C entry point: launches of the eager
                            # step with which each graph capture in that
@@ -339,8 +365,8 @@ def counted(path: str):
 
 
 def kernel_of(entry: str) -> str:
-    """The wrapper of C entry point kpg_<kernel>_<f32|f64>."""
-    return entry[len("kpg_"):].rsplit("_", 1)[0]
+    """The wrapper (WRAPPERS key) that counts C entry point `entry`."""
+    return next(k for p, k in ENTRY_WRAPPER.items() if entry.startswith(p))
 
 
 def net_launches(path: str) -> dict:
@@ -433,6 +459,7 @@ def phase_build() -> None:
     """The kernels' and the loops' nvcc builds, started together."""
     kernels = (("band_matvec", band_matvec._ENTRIES),
                ("gj_inv", smallinv._ENTRIES),
+               ("bcr_apply", bcr_apply._ENTRIES),
                ("graph_loops", graph_loops._ENTRIES))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
@@ -669,8 +696,180 @@ def k2_strided(rng, n: int, d: int, dev, tols) -> dict:
     return times
 
 
+# (n_cap, e_cap, nodes, loop edges) of the 5k and 30k cells' buckets
+PRECOND_CASES = ((8192, 16384, 5000, 10000), (32768, 32768, 30000, 30000))
+
+
+def precond_operands(prob, dtype, levels):
+    """The main path's preconditioner operands on `prob` at its start, in
+    `dtype`: (factor, coarse level, r = the reduced right-hand side)."""
+    prob = problem_astype(prob, dtype)
+    group = coarse_ops.auto_coarse_group(prob.n_cap)
+    ops = lm_ops.DeviceOps(prob, preconditioner="band+coarse",
+                           residual_mode="6dof", use_switch=True,
+                           bcr_levels=levels, coarse_group=group)
+    red = ops.reduce(ops.assemble(*ops.initial()),
+                     torch.tensor(1e4, dtype=dtype, device=prob.device))[0]
+    fac = lm_ops.band_factor(red.Dh, red.Bh, levels)
+    Hc_inv, info = coarse_ops.build_coarse_inverse_arrays(
+        red.Dh, red.Bh, red.Aba_h, prob.loop_b, prob.loop_a,
+        prob.loop_rows_by_node, prob.fanout, group)
+    coarse_ops.check_cholesky(info)
+    return (fac, bcr_apply.Coarse(Hc_inv, prob.free_mask, group),
+            red.rhs_n.contiguous())
+
+
+def graphed_ms(fn, evict=None, reps: int = 30, calls: int = 10) -> float:
+    """Median device time in ms of one fn() replayed from a CUDA graph, as
+    a solve replays it: a graph of `calls` calls, timed by CUDA events, so
+    that no host enqueue is timed (the apply is several launches, each a
+    ctypes call). With `evict` (an L2-evicting read) before each call,
+    the time of a graph of the evictions alone is taken off."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for body in ((lambda: (evict(), fn())) if evict else fn,
+                 evict):
+        if body is None:
+            ms.append(0.0)
+            continue
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms.append(float(np.median(times)) / calls)
+    return ms[0] - ms[1]
+
+
+def factor_bytes(fac, elsize: int) -> int:
+    """The bytes of the factor an apply must read: each level's Aoinv, Co
+    and Ce twice (forward and backward), the root blocks once."""
+    d = fac.root_inv.shape[-1]
+    blocks = (sum(6 * Ainv.shape[0] for Ainv, _, _ in fac.levels)
+              + fac.root_inv.shape[0])
+    return blocks * d * d * elsize
+
+
+def phase_precond(dev, card: str) -> dict:
+    """Phase 4b (see the module note). Returns the main path's row (5k,
+    fp32) with the 30k bucket's under "capacity"."""
+    out = {}
+    big = torch.ones(48 << 20, device=dev)      # 192 MB, read to evict L2
+    sink = torch.empty((), device=dev)
+
+    def evict():
+        torch.sum(big, dim=0, out=sink)
+
+    for (n_cap, e_cap, n, loops), fanout in itertools.product(
+            PRECOND_CASES, (5, 1)):
+        prob = circle_problem(n, loops, n_cap, e_cap, np.float64, dev,
+                              fanout=fanout)
+        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            for levels in (2, 0, 1, None):
+                fac, coarse, r = precond_operands(prob, dt, levels)
+                for c, node_major in itertools.product((coarse, None),
+                                                       (False, True)):
+                    before = bcr_apply.precond_apply.launches
+                    got = bcr_apply.precond_apply(fac, r, c, node_major)
+                    want = bcr_apply.precond_apply_plain(fac, r, c,
+                                                         node_major)
+                    torch.cuda.synchronize()
+                    launched = bcr_apply.precond_apply.launches - before
+                    abs_err, rel = rel_err(got, want)
+                    if not (rel <= tol and got.stride() == want.stride()
+                            and launched == bcr_apply.launches_per_apply(
+                                fac, c is not None)):
+                        raise AssertionError(
+                            f"precond_apply at n_cap {n_cap}, fanout "
+                            f"{fanout}, {dt}, bcr_levels {levels}, coarse "
+                            f"{c is not None}, node-major {node_major}: "
+                            f"rel err {rel} > {tol}, strides {got.stride()} "
+                            f"or {launched} launches")
+                    if levels != 2 or fanout != 5 or node_major:
+                        say("precond", n_cap=n_cap, fanout=fanout,
+                            dtype=str(dt)[6:], bcr_levels=levels,
+                            coarse=c is not None, node_major=node_major,
+                            max_rel_err=rel, tol=tol, launches=launched)
+                        continue
+                    es = r.element_size()
+                    b_ms, b_by = bound(factor_bytes(fac, es), 0, es)
+                    row = dict(
+                        n_cap=n_cap, dtype=str(dt)[6:], bcr_levels=levels,
+                        coarse=c is not None, d=fac.root_inv.shape[-1],
+                        level_blocks=[A.shape[0] for A, _, _ in fac.levels],
+                        root_blocks=fac.root_inv.shape[0], max_rel_err=rel,
+                        max_abs_err=abs_err, tol=tol, launches=launched,
+                        kernel_ms=event_ms(
+                            lambda: bcr_apply.precond_apply(fac, r, c)),
+                        kernel_ms_graphed=graphed_ms(
+                            lambda: bcr_apply.precond_apply(fac, r, c)),
+                        kernel_ms_graphed_l2_evicted=graphed_ms(
+                            lambda: bcr_apply.precond_apply(fac, r, c),
+                            evict),
+                        plain_ms=event_ms(
+                            lambda: bcr_apply.precond_apply_plain(fac, r, c)),
+                        plain_ms_graphed=graphed_ms(
+                            lambda: bcr_apply.precond_apply_plain(fac, r, c)),
+                        factor_mb=factor_bytes(fac, es) / 1e6,
+                        bound_ms=b_ms, bound_by=b_by)
+                    row["bound_share"] = b_ms / row["kernel_ms"]
+                    row["bound_share_l2_evicted"] = (
+                        b_ms / row["kernel_ms_graphed_l2_evicted"])
+                    say("precond", **row)
+                    if c is not None:
+                        key = "main" if n_cap == 8192 else "capacity"
+                        out.setdefault(key, {})[row["dtype"]] = {
+                            k: row[k] for k in (
+                                "kernel_ms", "kernel_ms_graphed",
+                                "kernel_ms_graphed_l2_evicted", "plain_ms",
+                                "plain_ms_graphed", "factor_mb", "bound_ms",
+                                "bound_share", "max_abs_err")}
+        del prob
+    # the graphed main path: every CG iteration's and every LM iteration's
+    # apply through the kernels, fp32 entry points in the product and mixed
+    # solves
+    prob = circle_problem(5000, 10000, 8192, 16384, np.float32, dev)
+    for precision in ("native", "mixed"):
+        lm_solve(prob, precision=precision, **PRODUCT)   # captures
+        before = dict(_kernels.ENTRY_LAUNCHES)
+        res = lm_solve(prob, precision=precision, **PRODUCT)
+        torch.cuda.synchronize()
+        taken = {e: n - before.get(e, 0)
+                 for e, n in _kernels.ENTRY_LAUNCHES.items()
+                 if e.startswith("kpg_bcr_apply_") and n - before.get(e, 0)}
+        per_apply = 2 * PRODUCT["bcr_levels"] + 1
+        applies = int(res.total_cg_iterations) + int(res.iterations)
+        want = {"kpg_bcr_apply_coarse_sum_f32": applies,
+                "kpg_bcr_apply_forward_f32": 2 * applies,
+                "kpg_bcr_apply_backward_f32": 2 * applies}
+        if taken != want:
+            raise AssertionError(f"a graphed {precision} solve of "
+                                 f"{int(res.iterations)} LM and "
+                                 f"{int(res.total_cg_iterations)} CG "
+                                 f"iterations launched {taken}, not {want}")
+        say("precond-graphed", precision=precision,
+            lm_iterations=int(res.iterations),
+            cg_iterations=int(res.total_cg_iterations),
+            launches_per_apply=per_apply, launches=json.dumps(taken),
+            card=repr(card))
+    return out
+
+
 def circle_problem(n, n_loops, n_cap, e_cap, dtype, device, outliers=0.2,
-                   prior_w=1.1, seed=0):
+                   prior_w=1.1, seed=0, fanout=5):
     g = synthetic.circle_graph(n_nodes=n, n_loops=n_loops, seed=seed,
                                outlier_fraction=outliers)
     return build_problem_np(
@@ -680,7 +879,7 @@ def circle_problem(n, n_loops, n_cap, e_cap, dtype, device, outliers=0.2,
         loop_valid=np.ones(n_loops, bool), switch=np.full(n_loops, 0.99),
         prior_idx=np.array([0]), prior_q=g.vio_q[:1], prior_t=g.vio_t[:1],
         prior_w=np.array([prior_w]), n_cap=n_cap, e_cap=e_cap, p_cap=8,
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, fanout=fanout)
 
 
 def timed_solves(fn, reps: int = 3) -> list:
@@ -863,21 +1062,25 @@ def entry_points_taken():
 
 
 def ladder_launches(res, rung: str, stats: dict) -> dict:
-    """K1 and K2 launches of a graphed device-ladder escalation: the mixed
-    rung (its LM and CG counts from the rung statistics), then, if it
-    climbed, the fp64 rung (the result's counts); 3 K2 per LM iteration
-    and one K1 per CG iteration that ran."""
+    """K1, K2 and preconditioner-apply launches of a graphed device-ladder
+    escalation: the mixed rung (its LM and CG counts from the rung
+    statistics), then, if it climbed, the fp64 rung (the result's counts);
+    3 K2 per LM iteration, one K1 per CG iteration that ran and PER_APPLY
+    per CG and per LM iteration."""
     mixed = stats["mixed_lm_iterations"]
     fp64 = int(res.iterations) if rung == "fp64" else 0
     k1 = stats["mixed_cg_iterations"] + (
         int(res.total_cg_iterations) if fp64 else 0)
-    return {"band_matvec": k1, "gj_inv": 3 * (mixed + fp64)}
+    return {"band_matvec": k1, "gj_inv": 3 * (mixed + fp64),
+            "precond_apply": PER_APPLY * (k1 + mixed + fp64)}
 
 
 def by_precision(taken: dict) -> dict:
     """{kernel: {"f32": n, "f64": n}} of entry_points_taken's counts."""
-    return {k: {p: taken.get(f"kpg_{k}_{p}", 0) for p in ("f32", "f64")}
-            for k in WRAPPERS}
+    out = {k: {"f32": 0, "f64": 0} for k in WRAPPERS}
+    for e, n in taken.items():
+        out[kernel_of(e)][e.rsplit("_", 1)[1]] += n
+    return out
 
 
 def phase_escalation(dev, card: str, fp32_chi2=None) -> None:
@@ -969,45 +1172,51 @@ def phase_escalation(dev, card: str, fp32_chi2=None) -> None:
 
 
 def expected_launches(rows: list, per_factor: int = 3) -> dict:
-    """K1 and K2 launches of the graphed solves that wrote `rows`:
-    `per_factor` K2 (bcr_levels + 1) per LM iteration and one K1 per CG
-    iteration that ran, for the fp32 trigger solves and the background
-    escalations' device rungs (a "mixed" row's mixed rung, a "fp64" row's
-    mixed rung from its rung_stats and then its fp64 rung); the host rung
-    launches nothing."""
-    k1 = k2 = 0
+    """K1, K2 and preconditioner-apply launches of the graphed solves that
+    wrote `rows`: `per_factor` K2 (bcr_levels + 1) per LM iteration, one K1
+    per CG iteration that ran and PER_APPLY per CG and per LM iteration
+    (an application at each CG start and one per CG iteration), for the
+    fp32 trigger solves and the background escalations' device rungs (a
+    "mixed" row's mixed rung, a "fp64" row's mixed rung from its rung_stats
+    and then its fp64 rung); the host rung launches nothing."""
+    k1 = lm = 0
     for r in rows:
         if "trigger_wall_ms" in r:
             k1 += r["cg_iterations"]
-            k2 += per_factor * r["lm_iterations"]
+            lm += r["lm_iterations"]
         elif r.get("escalated_rung") in ("mixed", "fp64"):
             st = r["rung_stats"]
-            mixed = st["mixed_lm_iterations"]
-            fp64 = r["lm_iterations"] if r["escalated_rung"] == "fp64" else 0
+            fp64 = r["escalated_rung"] == "fp64"
             k1 += st["mixed_cg_iterations"] + (r["cg_iterations"]
                                                if fp64 else 0)
-            k2 += per_factor * (mixed + fp64)
-    return {"band_matvec": k1, "gj_inv": k2}
+            lm += st["mixed_lm_iterations"] + (r["lm_iterations"]
+                                               if fp64 else 0)
+    return {"band_matvec": k1, "gj_inv": per_factor * lm,
+            "precond_apply": PER_APPLY * (k1 + lm)}
 
 
 def solve_launches(res, cg_cap: int, precond_matvecs: int = 0,
-                   per_factor: int = 3, graphed: bool = True) -> dict:
-    """K1 and K2 launches of one lm_solve with LM count res.iterations and
-    CG count res.total_cg_iterations: `per_factor` K2 (bcr_levels + 1) per
-    LM iteration; one K1 per CG iteration plus `precond_matvecs` in each
-    preconditioner application (2 for band*coarse's two-grid: one at each
-    CG start and one per CG iteration). Graphed, the CG loop ends on the
-    device, so a CG iteration is one that ran; eager (the CPU's loop on
-    the card, a mesh), every one of the fixed cap."""
+                   per_factor: int = 3, graphed: bool = True,
+                   per_apply: int = PER_APPLY) -> dict:
+    """K1, K2 and preconditioner-apply launches of one lm_solve with LM
+    count res.iterations and CG count res.total_cg_iterations:
+    `per_factor` K2 (bcr_levels + 1) per LM iteration; one K1 per CG
+    iteration plus `precond_matvecs` in each preconditioner application
+    (2 for band*coarse's two-grid), and `per_apply` apply launches in each
+    (PER_APPLY_TWO_GRID for the two-grid), an application being one at
+    each CG start and one per CG iteration. Graphed, the CG loop ends on
+    the device, so a CG iteration is one that ran; eager (the CPU's loop
+    on the card, a mesh), every one of the fixed cap."""
     it = int(res.iterations)
     cg = int(res.total_cg_iterations) if graphed else it * cg_cap
     return {"band_matvec": cg + precond_matvecs * (cg + it),
-            "gj_inv": it * per_factor}
+            "gj_inv": it * per_factor, "precond_apply": per_apply * (cg + it)}
 
 
 def on_shards(want: dict, shards: int) -> dict:
     """The launches `want` of one device's solve on a mesh of `shards` on
-    one card: K1 once per shard, K2 once (the factorization is gathered)."""
+    one card: K1 once per shard, K2 and the preconditioner apply once (the
+    factorization and the apply are gathered)."""
     return dict(want, band_matvec=shards * want["band_matvec"])
 
 
@@ -1028,8 +1237,9 @@ def phase_two_grid(dev, card: str) -> None:
     with counted("two-grid"):
         res = lm_solve(prob, **kw)
         chi2 = float(res.final_cost)
-    check_launches("two-grid", solve_launches(res, kw["max_cg_iterations"],
-                                              precond_matvecs=2))
+    check_launches("two-grid", solve_launches(
+        res, kw["max_cg_iterations"], precond_matvecs=2,
+        per_apply=PER_APPLY_TWO_GRID))
     if not within_quality(chi2, CHI2_REF):
         raise AssertionError(f"band*coarse chi^2 {chi2} not within "
                              f"{QUALITY:.0%} of {CHI2_REF}")
@@ -1499,6 +1709,7 @@ def mesh_eager(prob, sp, path: str, card: str, fields: dict):
     want = on_shards(solve_launches(res, PRODUCT["max_cg_iterations"],
                                     graphed=False), 4)
     want["gj_inv"] *= len(sp.mesh.distinct)      # a factorization per card
+    want["precond_apply"] *= len(sp.mesh.distinct)   # and an apply
     check_launches(path, want)
     lm_solve(sp, **PRODUCT)                      # warm-up
     times = in_turns({
@@ -1627,9 +1838,17 @@ def phase_mesh(dev, card: str) -> None:
     resid = gn.reduced_matvec_t(red, prob, x) - red.rhs_n
     rel = float(resid.double().norm() / red.rhs_n.double().norm())
     k1 = PATH_LAUNCHES["mesh-pcg-sharded"]
-    if not (rel < 1e-4 and all(k1.values()) and k1["band_matvec"] % 8 == 0):
+    # each shard's band apply at the exact root (bcr_levels None): two
+    # launches per level of its 2^L super-nodes, once at the CG start and
+    # once per CG iteration (a K1 launch per shard)
+    supernodes = -(-(prob.n_cap // 8) // prob.fanout)
+    per_shard = 2 * (supernodes - 1).bit_length()
+    applies = k1["band_matvec"] // 8 + 1
+    if not (rel < 1e-4 and all(k1.values()) and k1["band_matvec"] % 8 == 0
+            and k1["precond_apply"] == 8 * per_shard * applies):
         raise AssertionError(f"pcg_sharded: relative residual {rel}, "
-                             f"launches {k1}")
+                             f"launches {k1}, {per_shard} apply launches "
+                             f"per shard and {applies} applications")
     # the sharded halo matvec against the single-device one, both K1
     layout = edge_layout(prob.loop_b, prob.loop_a, prob.n_cap, prob.fanout,
                          mesh8, live=prob.loop_mask)
@@ -1915,9 +2134,9 @@ def check_profiled(path: str, prof: dict) -> bool:
     profiler has seen a kernel inside a nested WHILE body once per LM
     iteration (10 of 321 K1) in a solve whose device counts and result
     (bit for bit the eager one) show every body run."""
-    want = PATH_LAUNCHES[path]
     seen = {"band_matvec": prof["k1"]["launches"],
             "gj_inv": prof["k2"]["launches"]}
+    want = {k: PATH_LAUNCHES[path][k] for k in seen}
     PROFILED[path] = seen
     if seen != want:
         DISAGREED[path] = {"profiler": seen, "counted": want}
@@ -2257,7 +2476,8 @@ def graphed_against_eager(prob, kw: dict, tag: str, card: str,
     a dispatch lock; against the eager loop on the same problem: every
     result field bit for bit, the launches of each counted run as its LM
     and CG counts imply (K1 per CG iteration that ran when graphed, per
-    iteration of the cap when eager; once per shard on a mesh), the
+    iteration of the cap when eager; once per shard on a mesh; the
+    preconditioner apply's per CG and LM iteration), the
     build's costs, the launches and host reads per solve, `reps` of each
     form and of each of `also` ({name: fn}) in turns; the solve form's
     counted run is profiled, and the profiler must see in it the launches
@@ -2292,9 +2512,13 @@ def graphed_against_eager(prob, kw: dict, tag: str, card: str,
             host_reads=sum(graphs.HOST_READS.values()) - sum(reads.values()))
     res = runs["solve"]["res"]
     it = int(res.iterations)
-    want = on_shards(solve_launches(res, cap, precond_matvecs), shards)
+    per_apply = (PER_APPLY_TWO_GRID if kw["preconditioner"] == "band*coarse"
+                 else PER_APPLY)
+    want = on_shards(solve_launches(res, cap, precond_matvecs,
+                                    per_apply=per_apply), shards)
     check_launches(f"{tag}-eager", on_shards(solve_launches(
-        eager, cap, precond_matvecs, graphed=False), shards))
+        eager, cap, precond_matvecs, graphed=False, per_apply=per_apply),
+        shards))
     for path in (f"{tag}-capture", tag, f"{tag}-step"):
         check_launches(path, want)
     if (PATH_WARMUP.get(tag) or PATH_WARMUP.get(f"{tag}-step")
@@ -2615,7 +2839,7 @@ def phase_graphs(dev, card: str) -> None:
                           "graphs-four-dof", card, reps=3)
 
 
-PHASES = ("build", "k1", "k2", "solve", "engine", "escalation", "cli-solve",
+PHASES = ("build", "k1", "k2", "precond", "solve", "engine", "escalation", "cli-solve",
           "replay", "serve", "two-grid", "four-dof", "incremental", "mesh",
           "capacity", "capacity_stream", "bench", "graphs", "stream_rows")
 
@@ -2636,13 +2860,15 @@ def main(argv=None) -> None:
 
     card = phase_device()
     dev = torch.device("cuda", 0)
-    k1 = k2 = {}
+    k1 = k2 = precond = {}
     if run("build"):
         phase_build()
     if run("k1"):
         k1 = phase_k1(dev)
     if run("k2"):
         k2 = phase_k2(dev)
+    if run("precond"):
+        precond = phase_precond(dev, card)
     fp32_chi2 = None
     if run("solve"):
         fp32_chi2 = phase_solve(dev, card)
@@ -2678,7 +2904,7 @@ def main(argv=None) -> None:
     if only:
         say("partial", phases=",".join(only), card=repr(card))
         return
-    by_path = {k: {p: n[k] for p, n in PATH_LAUNCHES.items()}
+    by_path = {k: {p: n[k] for p, n in PATH_LAUNCHES.items() if k in n}
                for k in WRAPPERS}
     kernels = [
         dict(name="band_matvec", route="cuda",
@@ -2698,6 +2924,11 @@ def main(argv=None) -> None:
              launches_measured={p: n["gj_inv"] for p, n in PROFILED.items()},
              profiler_disagrees={p: d["profiler"]["gj_inv"]
                                  for p, d in DISAGREED.items()}, **k2),
+        dict(name="bcr_apply", route="cuda",
+             source="solve_keyframe_pose_graph_tpu_torch/csrc/bcr_apply.cu",
+             replaces=None,
+             launches=sum(by_path["precond_apply"].values()),
+             launches_by_path=by_path["precond_apply"], **precond),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -93,6 +93,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from solve_keyframe_pose_graph_tpu_torch.ops import band as band_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import bcr_apply
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import gn as gn_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import pcg as pcg_ops
@@ -173,13 +174,24 @@ def _apply_step(q, t, s, dx_n, dx_s, node_mask, renormalize: bool):
 
 def band_factor(Dh, Bh, bcr_levels) -> band_ops.BCRFactor:
     """The band BCR factorization of reduced blocks Dh (36,N), Bh (F,36,N),
-    on AoS super-node blocks (kernel K2 for CUDA tensors)."""
+    on AoS super-node blocks (kernel K2 for CUDA tensors). Every block is
+    row-major, as the preconditioner apply's kernels read it: on the card
+    bcr_factorize's einsum leaves C column-major from level 1 on, and at
+    d = 6 the plain inverse returns strided blocks; such a batch is copied
+    row-major here, once per factorization."""
     F = Bh.shape[0]
     Bh_aos = torch.stack([gn_ops.t_blocks_to_aos(Bh[f]) for f in range(F)])
     A_band, C_band, _ = band_ops.build_band_system(
         gn_ops.t_blocks_to_aos(Dh), Bh_aos, group=F)
-    return band_ops.bcr_factorize(A_band, C_band, group=F,
-                                  max_levels=bcr_levels)
+    fac = band_ops.bcr_factorize(A_band, C_band, group=F,
+                                 max_levels=bcr_levels)
+
+    def rows(t):
+        return t if smallinv.batch_stride(t) is not None else t.contiguous()
+
+    return fac._replace(levels=tuple(tuple(map(rows, lvl))
+                                     for lvl in fac.levels),
+                        root_inv=rows(fac.root_inv))
 
 
 def jacobi_scales(D, ds, radius):
@@ -268,20 +280,23 @@ class DeviceOps:
         fac = band_factor(red.Dh, red.Bh, self.bcr_levels)
 
         def band(r):
-            return band_ops.band_precond_apply(fac, r.T).T
+            return bcr_apply.precond_apply(fac, r.contiguous())
 
         if kind == "band":
-            return (lambda r: band(r).contiguous()), None
+            return band, None
         group, p = self.coarse_group, self.problem
         Hc_inv, info = coarse_ops.build_coarse_inverse_arrays(
             red.Dh, red.Bh, red.Aba_h, p.loop_b, p.loop_a,
             p.loop_rows_by_node, p.fanout, group)
 
+        if kind == "band+coarse":
+            both = bcr_apply.Coarse(Hc_inv, p.free_mask, group)
+            return (lambda r: bcr_apply.precond_apply(
+                fac, r.contiguous(), both)), info
+
         def coarse(r):
             return coarse_ops.coarse_apply(Hc_inv, p.free_mask, r, group)
 
-        if kind == "band+coarse":
-            return (lambda r: (band(r) + coarse(r)).contiguous()), info
         return (lambda r: coarse_ops.two_grid_apply(band, coarse, mv, r)), info
 
     def recover(self, red: gn_ops.ReducedSystemT, x_n):

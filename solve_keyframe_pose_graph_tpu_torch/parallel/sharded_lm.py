@@ -55,7 +55,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from solve_keyframe_pose_graph_tpu_torch.ops import band as band_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import bcr_apply
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import gn as gn_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
@@ -270,8 +270,12 @@ class ShardedOps(lm_ops.DeviceOps):
         fac = {dev: lm_ops.band_factor(Dh[dev], Bh[dev], self.bcr_levels)
                for dev in Dh}
 
-        def band(dev, r):
-            return band_ops.band_precond_apply(fac[dev], r.T).T
+        # the apply lays its result out node-major, so that a shard's block
+        # is one dense slice and the shards' fp32 CG sums run over it in
+        # node order
+        def band(dev, r, coarse=None):
+            return bcr_apply.precond_apply(fac[dev], r.contiguous(), coarse,
+                                           node_major=True)
 
         if kind == "band":
             return self._gathered(band), None
@@ -290,8 +294,9 @@ class ShardedOps(lm_ops.DeviceOps):
                 Hc_inv[dev], sp.topology(dev).free_mask, r, group)
 
         if kind == "band+coarse":
-            apply = self._gathered(lambda dev, r: band(dev, r)
-                                   + coarse(dev, r))
+            apply = self._gathered(lambda dev, r: band(
+                dev, r, bcr_apply.Coarse(Hc_inv[dev],
+                                         sp.topology(dev).free_mask, group)))
         else:
             def apply(r):
                 return coarse_ops.two_grid_apply(

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from solve_keyframe_pose_graph_tpu_torch.ops import band as band_ops
+from solve_keyframe_pose_graph_tpu_torch.ops import bcr_apply
 from solve_keyframe_pose_graph_tpu_torch.ops import coarse as coarse_ops
 from solve_keyframe_pose_graph_tpu_torch.ops import lm as lm_ops
 from solve_keyframe_pose_graph_tpu_torch.parallel.collectives import (
@@ -77,7 +77,7 @@ def pcg_sharded(Dh, Bh, Aba_h, loop_b, loop_a, rhs, *, mesh: Mesh,
            for D, B in zip(Dh_s.parts, Bh_s.parts)]
 
     def band(r: Shards) -> Shards:
-        return Shards(band_ops.band_precond_apply(f, x.T).T
+        return Shards(bcr_apply.precond_apply(f, x.contiguous())
                       for f, x in zip(fac, r.parts))
 
     precond = band

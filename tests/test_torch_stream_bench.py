@@ -269,9 +269,12 @@ def test_small_row_matches_the_jax_engine():
     assert [b[3] for b in rec["boxes"]] == [b[2] for b in rec["boxes"]]
     assert rec["covered"] == 0 and rec["trigger_captures"] == 0
     assert rec["settled"] and len(rec["walls_ms"]) == rec["triggers"]
-    assert rec["launches"] == {"band_matvec": 0, "gj_inv": 0}
+    assert rec["launches"] == {"band_matvec": 0, "gj_inv": 0,
+                               "precond_apply": 0}
     assert rec["launches_want"]["gj_inv"] == 3 * sum(
         r["lm_iterations"] for r in rows)
+    assert rec["launches_want"]["precond_apply"] == 5 * sum(
+        r["cg_iterations"] + r["lm_iterations"] for r in rows)
     assert set(rec["phase_ms_mean"]) >= {"device_solve", "problem_build",
                                          "write_back", "trigger_total"}
 
